@@ -1,0 +1,84 @@
+"""Checkpoint name handling for the port, and the JAX-tree carry-across.
+
+Counterpart of ``simple_hrnet_tpu/models/convert.py``. The port's modules
+already use the official ``state_dict`` names, so loading an official
+``.pth`` is ``load_state_dict`` after ``clean_state_dict`` (unwrap a
+``{'model': ...}`` training checkpoint, strip ``module.`` prefixes).
+
+``from_jax_params`` inverts the JAX package's ``state_dict_to_tree``: a
+nested dict of numpy arrays (HWIO ``kernel``, BN ``scale``/``bias``/
+``mean``/``var``) becomes a flat ``state_dict`` (OIHW ``weight``, BN
+``weight``/``bias``/``running_mean``/``running_var``). It covers the HRNet
+tree and the darknet tree (``conv_<i>`` nodes with a nested ``bn``), so
+the tests can run both packages on the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def clean_state_dict(checkpoint: Any) -> Dict[str, torch.Tensor]:
+    """Official weight file or ``{'model': state_dict, ...}`` harness
+    checkpoint -> flat state_dict without ``module.`` prefixes."""
+    if isinstance(checkpoint, dict) and 'model' in checkpoint:
+        checkpoint = checkpoint['model']
+    out = {}
+    for key, value in checkpoint.items():
+        if key.startswith('module.'):
+            key = key[len('module.'):]
+        out[key] = value
+    return out
+
+
+def load_into(model: nn.Module, state_dict: Mapping[str, torch.Tensor]
+              ) -> nn.Module:
+    """``load_state_dict`` that tolerates only missing BN
+    ``num_batches_tracked`` counters (absent from older official files);
+    any other missing or unexpected key raises."""
+    result = model.load_state_dict(dict(state_dict), strict=False)
+    missing = [k for k in result.missing_keys
+               if not k.endswith('num_batches_tracked')]
+    if missing or result.unexpected_keys:
+        raise ValueError(f'checkpoint does not match the model: missing '
+                         f'{missing[:8]}, unexpected '
+                         f'{result.unexpected_keys[:8]}')
+    return model
+
+
+def _is_bn(node: Mapping) -> bool:
+    return 'mean' in node and 'kernel' not in node
+
+
+def from_jax_params(tree: Mapping[str, Any], prefix: str = ''
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of arrays) -> flat torch state_dict."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a))  # a writable copy
+
+    for k, v in tree.items():
+        path = f'{prefix}{k}'
+        if not isinstance(v, Mapping):
+            raise TypeError(f'unexpected leaf {path!r} outside a conv/BN node')
+        if _is_bn(v):
+            flat[f'{path}.weight'] = t(v['scale'])
+            flat[f'{path}.bias'] = t(v['bias'])
+            flat[f'{path}.running_mean'] = t(v['mean'])
+            flat[f'{path}.running_var'] = t(v['var'])
+            continue
+        if 'kernel' in v:  # HWIO -> OIHW
+            flat[f'{path}.weight'] = t(np.transpose(v['kernel'], (3, 2, 0, 1)))
+            if 'bias' in v:
+                flat[f'{path}.bias'] = t(v['bias'])
+            children = {ck: cv for ck, cv in v.items()
+                        if ck not in ('kernel', 'bias')}
+            flat.update(from_jax_params(children, prefix=f'{path}.'))
+            continue
+        flat.update(from_jax_params(v, prefix=f'{path}.'))
+    return flat

@@ -1,0 +1,210 @@
+"""HRNet pose network in PyTorch (NHWC in, NHWC heatmaps out).
+
+Counterpart of ``simple_hrnet_tpu/models/hrnet.py``: stem -> 4 Bottlenecks
+-> transitions creating 2/3/4 resolution branches -> repeated stage
+modules with all-to-all fusion -> 1x1 head computed in f32. Module names
+are the official ``pose_hrnet_*`` ``state_dict`` names.
+
+After ``prepare_inference`` (BN folded, weights cast to the compute type)
+every stage module runs two hand-written CUDA kernels on CUDA tensors:
+  * branch 0's chain of 4 BasicBlocks through ``basic_chain`` (K2);
+  * fusion output 0 (the high-res branch) through ``fuse_up`` (K3).
+At W48 that is 8 launches of each per forward. On CPU tensors the same
+wrappers run their plain PyTorch versions. The JAX package gates both
+kernels on filling 128 TPU lanes; the port does not inherit that gate.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from simple_hrnet_tpu_torch.models import layers as L
+from simple_hrnet_tpu_torch.ops.cuda.fuse_up import fuse_up
+from simple_hrnet_tpu_torch.ops.cuda.fused_block import (basic_chain,
+                                                         pack_chain_weights)
+
+# (n_modules, n_branches) per stage; stage4's last module emits 1 branch
+STAGE_CFG = {
+    'stage2': (1, 2),
+    'stage3': (4, 3),
+    'stage4': (3, 4),
+}
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW-logical (channels_last) -> contiguous NHWC, a view when the
+    tensor is already channels_last."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _conv_bn_relu(c_in: int, c_out: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(L.conv3x3(c_in, c_out, stride), L.bn(c_out),
+                         nn.ReLU())
+
+
+class StageModule(nn.Module):
+    """Per-branch 4x BasicBlock, then O(branches^2) fusion."""
+
+    def __init__(self, n_branches: int, n_out: int, c: int):
+        super().__init__()
+        self.n_branches = n_branches
+        self.branches = nn.ModuleList([
+            nn.Sequential(*[L.BasicBlock(c * 2 ** b) for _ in range(4)])
+            for b in range(n_branches)])
+        self.fuse_layers = nn.ModuleList()
+        for i in range(n_out):
+            row = nn.ModuleList()
+            ci = c * 2 ** i
+            for j in range(n_branches):
+                cj = c * 2 ** j
+                if i == j:
+                    row.append(nn.Sequential())
+                elif i < j:
+                    row.append(nn.Sequential(
+                        L.conv1x1(cj, ci), L.bn(ci),
+                        nn.Upsample(scale_factor=2 ** (j - i),
+                                    mode='nearest')))
+                else:
+                    steps = [_conv_bn_relu(cj, cj, 2)
+                             for _ in range(i - j - 1)]
+                    steps.append(nn.Sequential(L.conv3x3(cj, ci, 2),
+                                               L.bn(ci)))
+                    row.append(nn.Sequential(*steps))
+            self.fuse_layers.append(row)
+        # kernel operands, set by pack() on folded weights
+        self.chain: Optional[tuple] = None
+        self.fuse: Optional[tuple] = None
+
+    def pack(self, dtype: torch.dtype) -> None:
+        """Pack the folded weights for the CUDA kernels: branch 0's chain
+        and, for a multi-branch module, output 0's fusion sources."""
+        convs = []
+        for blk in self.branches[0]:
+            for conv in (blk.conv1, blk.conv2):
+                if conv.bias is None:
+                    raise ValueError('pack() needs folded BN '
+                                     '(layers.fold_batch_norm first)')
+                convs.append((conv.weight, conv.bias))
+        self.chain = pack_chain_weights(convs, dtype)
+        if self.n_branches > 1:
+            srcs = [self.fuse_layers[0][j][0]
+                    for j in range(1, self.n_branches)]
+            bias_sum = torch.zeros_like(srcs[0].bias, dtype=torch.float32)
+            for conv in srcs:
+                bias_sum = bias_sum + conv.bias.float()
+            weights = [conv.weight[:, :, 0, 0].t().to(dtype).contiguous()
+                       for conv in srcs]
+            self.fuse = (weights, bias_sum)
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        xs = list(xs)
+        for b, branch in enumerate(self.branches):
+            if b == 0 and self.chain is not None:
+                xs[0] = _nchw(basic_chain(_nhwc(xs[0]), *self.chain))
+            else:
+                xs[b] = branch(xs[b])
+        fused = []
+        for i, row in enumerate(self.fuse_layers):
+            if i == 0 and self.fuse is not None:
+                weights, bias_sum = self.fuse
+                fused.append(_nchw(fuse_up(
+                    _nhwc(xs[0]), [_nhwc(x) for x in xs[1:]], weights,
+                    bias_sum)))
+                continue
+            acc = None
+            for j, layer in enumerate(row):
+                y = xs[j] if i == j else layer(xs[j])
+                acc = y if acc is None else acc + y
+            fused.append(F.relu(acc))
+        return fused
+
+
+class HRNet(nn.Module):
+    """HRNet-W``c`` with ``nof_joints`` heatmap channels."""
+
+    def __init__(self, c: int = 48, nof_joints: int = 17):
+        super().__init__()
+        self.c = c
+        self.nof_joints = nof_joints
+        self.conv1 = L.conv3x3(3, 64, 2)
+        self.bn1 = L.bn(64)
+        self.conv2 = L.conv3x3(64, 64, 2)
+        self.bn2 = L.bn(64)
+        self.layer1 = nn.Sequential(
+            L.Bottleneck(64, 64, downsample=True),
+            *[L.Bottleneck(256, 64) for _ in range(3)])
+        self.transition1 = nn.ModuleList([
+            _conv_bn_relu(256, c, 1),
+            nn.Sequential(_conv_bn_relu(256, 2 * c, 2))])
+        self.stage2 = nn.Sequential(StageModule(2, 2, c))
+        self.transition2 = nn.ModuleList([
+            nn.Sequential(), nn.Sequential(),
+            nn.Sequential(_conv_bn_relu(2 * c, 4 * c, 2))])
+        self.stage3 = nn.Sequential(*[StageModule(3, 3, c)
+                                      for _ in range(4)])
+        self.transition3 = nn.ModuleList([
+            nn.Sequential(), nn.Sequential(), nn.Sequential(),
+            nn.Sequential(_conv_bn_relu(4 * c, 8 * c, 2))])
+        self.stage4 = nn.Sequential(StageModule(4, 4, c), StageModule(4, 4, c),
+                                    StageModule(4, 1, c))
+        self.final_layer = nn.Conv2d(c, nof_joints, 1)
+        self.compute_dtype = torch.float32
+
+    def stage_modules(self) -> List[StageModule]:
+        return [*self.stage2, *self.stage3, *self.stage4]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) normalized RGB -> (N, H/4, W/4, nof_joints) f32."""
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = self.layer1(x)
+        xs = [self.transition1[0](x), self.transition1[1](x)]
+        for m in self.stage2:
+            xs = m(xs)
+        xs = xs + [self.transition2[2](xs[-1])]
+        for m in self.stage3:
+            xs = m(xs)
+        xs = xs + [self.transition3[3](xs[-1])]
+        for m in self.stage4:
+            xs = m(xs)
+        # head in f32, as in the JAX package (bf16 runs upcast here)
+        out = self.final_layer(xs[0].float())
+        return out.permute(0, 2, 3, 1)
+
+
+def init(c: int = 48, nof_joints: int = 17, seed: int = 0) -> HRNet:
+    """Fresh HRNet with torch-default (kaiming-uniform) conv init drawn from
+    a generator seeded with ``seed``; identity BN statistics."""
+    model = HRNet(c, nof_joints)
+    L.init_(model, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+def prepare_inference(model: HRNet, dtype: torch.dtype = torch.float32,
+                      kernels: bool = True) -> HRNet:
+    """Fold BN, pack the kernel operands (``kernels``) and cast every conv
+    but the f32 head to ``dtype``, in place, on the model's current device.
+    With ``kernels=False`` the stage modules run the plain blocks and
+    fusion (the reference-shaped graph)."""
+    model.eval()
+    L.fold_batch_norm(model)
+    if kernels:
+        for m in model.stage_modules():
+            m.pack(dtype)
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d) and mod is not model.final_layer:
+            mod.to(dtype)
+    if next(model.parameters()).device.type == 'cuda':
+        model.to(memory_format=torch.channels_last)
+    model.compute_dtype = dtype
+    model.requires_grad_(False)
+    return model

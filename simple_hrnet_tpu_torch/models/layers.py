@@ -1,0 +1,144 @@
+"""Conv/BN building blocks of the pose networks, in PyTorch.
+
+Counterpart of ``simple_hrnet_tpu/models/layers.py``. Modules keep the
+reference's ``state_dict`` names (``conv1``/``bn1`` siblings, numbered
+``nn.Sequential`` children), so official ``pose_hrnet_*`` checkpoints load
+with ``load_state_dict``.
+
+Two execution modes, as in the JAX package:
+  * unfolded: conv -> BatchNorm2d (eval statistics, eps 1e-5);
+  * folded (inference): ``fold_batch_norm`` absorbs every BN into the conv
+    before it (weight *= gamma / sqrt(var + eps), bias folded in) and
+    replaces the BN by ``nn.Identity``, so the same forward serves both.
+
+Layout: the networks take and return NHWC tensors at their public
+functions (like the JAX package); inside, activations are logical NCHW
+tensors in ``torch.channels_last`` memory, which is NHWC in memory — so
+the CUDA kernels get NHWC views with no copy.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
+
+
+def conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(c_in, c_out, 3, stride=stride, padding=1, bias=False)
+
+
+def conv1x1(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(c_in, c_out, 1, stride=stride, bias=False)
+
+
+def bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class BasicBlock(nn.Module):
+    """3x3 -> BN -> ReLU -> 3x3 -> BN, residual add, ReLU (no downsample in
+    any HRNet configuration; the reference's conv2 in_channels=inplanes
+    quirk is coherent only when inplanes == planes, as here)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = conv3x3(c, c)
+        self.bn1 = bn(c)
+        self.conv2 = conv3x3(c, c)
+        self.bn2 = bn(c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return F.relu(out + x)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 (expansion 4), residual (optional 1x1 downsample),
+    ReLU."""
+
+    def __init__(self, c_in: int, planes: int, downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv1x1(c_in, planes)
+        self.bn1 = bn(planes)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = bn(planes)
+        self.conv3 = conv1x1(planes, planes * 4)
+        self.bn3 = bn(planes * 4)
+        self.downsample = (nn.Sequential(conv1x1(c_in, planes * 4),
+                                         bn(planes * 4))
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+def _fold_pair(conv: nn.Conv2d, norm: nn.BatchNorm2d) -> None:
+    """y = (conv(x) - mean) * gamma / sqrt(var + eps) + beta, absorbed into
+    ``conv`` in place (same arithmetic as the JAX package's _fold_pair)."""
+    with torch.no_grad():
+        w = conv.weight.float()
+        inv = norm.weight.float() / torch.sqrt(norm.running_var.float()
+                                               + norm.eps)
+        bias = norm.bias.float() - norm.running_mean.float() * inv
+        if conv.bias is not None:
+            bias = bias + conv.bias.float() * inv
+        conv.weight = nn.Parameter(w * inv[:, None, None, None],
+                                   requires_grad=False)
+        conv.bias = nn.Parameter(bias, requires_grad=False)
+
+
+def fold_batch_norm(module: nn.Module) -> nn.Module:
+    """Fold every (conv, BN) sibling pair below ``module`` in place and
+    replace the BN by ``nn.Identity``. Pairing rules (as in the JAX
+    package): ``convN``/``bnN`` siblings, and numbered children where
+    child i is a conv and child i+1 a BN. Returns ``module``."""
+    for parent in list(module.modules()):
+        children = dict(parent.named_children())
+        for name, child in children.items():
+            if not isinstance(child, nn.Conv2d):
+                continue
+            if name.startswith('conv'):
+                bn_name: Optional[str] = 'bn' + name[len('conv'):]
+            elif name.isdigit():
+                bn_name = str(int(name) + 1)
+            else:
+                bn_name = None
+            if bn_name is not None and isinstance(children.get(bn_name),
+                                                  nn.BatchNorm2d):
+                _fold_pair(child, children[bn_name])
+                setattr(parent, bn_name, nn.Identity())
+    return module
+
+
+def init_conv_(weight: torch.Tensor, bias: Optional[torch.Tensor],
+               gen: torch.Generator) -> None:
+    """The torch nn.Conv2d default init (kaiming-uniform, bound
+    1/sqrt(fan_in) for weight and bias) of an OIHW weight, from ``gen``."""
+    bound = 1.0 / math.sqrt(weight[0].numel())
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=gen)
+        if bias is not None:
+            bias.uniform_(-bound, bound, generator=gen)
+
+
+def init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Seeded torch-default init of every conv below ``module``; BNs get
+    identity statistics."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            init_conv_(m.weight, m.bias, gen)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return module

@@ -1,0 +1,26 @@
+"""Device selection for the port's entry points.
+
+They run on the card unless the caller asks for the CPU: ``None`` means
+'cuda', and asking for a CUDA device without one raises — the port never
+serves silently on the host (the JAX facade's rule, api.py:399-416).
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f'device {str(dev)!r} requested but no CUDA device is '
+                "visible; pass device='cpu' explicitly to run on the host")
+        if dev.index is None:
+            dev = torch.device('cuda', torch.cuda.current_device())
+    elif dev.type != 'cpu':
+        raise ValueError(f'unsupported device {device!r} (cuda or cpu)')
+    return dev
