@@ -8,16 +8,19 @@ Phases (any failure exits nonzero):
   1. build the CUDA kernels from ``simple_hrnet_tpu_torch/csrc`` (one nvcc
      per source, all at once) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, in bf16 and in f32 with TF32 off, and time the
-     kernel, the plain version and one library call;
+     main path's shapes (every batch phase 4 gives the pose model), in bf16
+     and in f32 with TF32 off; show that wrong-bias controls fall outside
+     the bf16 tolerance; time the kernel, the plain version and one
+     library call;
   3. HRNet-W48 forward at 384x288, kernels against the plain path (f32);
   4. build ``SimpleHRNet(48, 17, <.pth>, resolution=(384, 288),
      multiperson=True, yolo_model_def='yolov3', dtype='bfloat16')`` from a
      seeded random ``.pth`` and a seeded random darknet ``.weights`` file,
      run ``predict`` on one synthetic 480x640 frame and on a stack of 8,
      with every kernel's launch count set to 0 just before and read just
-     after, and check that detections reached the pose path and that
-     every kernel ran there.
+     after, and check that detections reached the pose path, that every
+     kernel ran there, and that the pose model ran only at the batches
+     phase 2 checked.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -45,8 +48,16 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # kernel-vs-plain tolerances, relative to max |plain|: f32 differs only by
 # summation order (8 chained convs of 432-term sums); bf16 adds one-ulp
-# flips at each rounding (2^-8 relative) that the later convs carry on
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+# flips at each rounding (2^-8 to 2^-7 of max) that the later convs carry
+# on. The bf16 limit sits between that reading and the wrong-bias controls
+# that check_chain and check_fuse_up hold against it.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+# the batches phase 4's predict calls give the pose model (max_batch_size
+# 32, 32 people a frame from the random detector): 2 and 32 for one frame,
+# 16 and 32 for the stack of 8. Phase 2 checks the kernels at each; phase 4
+# fails if the pose model sees another.
+POSE_BATCHES = (2, 16, 32)
 
 
 def cuda_ms(fn, iters=30, warmup=3):
@@ -125,32 +136,57 @@ def check_nms(dev, rec):
           f'{b_ms:.5f} {b_by})', flush=True)
 
 
-def _chain_inputs(dev, dtype, bsz=8, h=96, w=72, c=48):
+def _chain_inputs(dev, dtype, bsz, h=96, w=72, c=48):
+    """W48 branch-0 operands; biases at folded-BN scale (uniform +-1)."""
     g = torch.Generator().manual_seed(2)
     x = torch.randn((bsz, h, w, c), generator=g).to(dev, dtype)
     lim = 1.0 / np.sqrt(9 * c)
     wt = ((torch.rand((8, 3, 3, c, c), generator=g) * 2 - 1) * lim * 1.7)
-    b = (torch.rand((8, c), generator=g) * 2 - 1) * 0.1
+    b = torch.rand((8, c), generator=g) * 2 - 1
     return x, wt.to(dev, dtype).contiguous(), b.to(dev).contiguous()
+
+
+def check_controls(what, ref, wrong, tol):
+    """Each wrong-bias result must differ from ``ref`` by more than ``tol``
+    of max, or the tolerance could not catch a bias bug. Returns the
+    smallest such difference (relative to max)."""
+    rels = {name: rel_err(out, ref)[1] for name, out in wrong.items()}
+    for name, rel in rels.items():
+        if rel <= tol:
+            raise AssertionError(f'{what}: control "{name}" is within the '
+                                 f'tolerance ({rel} <= {tol} of max)')
+    print(f'{what} controls (rel to max): '
+          f'{ {k: f"{v:.3e}" for k, v in rels.items()} }', flush=True)
+    return min(rels.values())
 
 
 def check_chain(dev, rec):
     from simple_hrnet_tpu_torch.ops.cuda import fused_block as K
 
-    out = {}
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        x, wt, b = _chain_inputs(dev, dtype)
-        y = K.basic_chain(x, wt, b)
-        ref = K.basic_chain_plain(x, wt, b)
-        torch.cuda.synchronize()
-        err, rel = rel_err(y, ref)
-        if rel > TOL[dtype]:
-            raise AssertionError(f'basic_chain {dtype}: max err {err} '
-                                 f'({rel} of max) > {TOL[dtype]}')
-        out[dtype] = (err, rel, x, wt, b)
-        print(f'K2 basic_chain {str(dtype)[6:]}: max abs err {err:.3e} '
-              f'(rel {rel:.3e}, tol {TOL[dtype]:.1e})', flush=True)
-    x, wt, b = out[torch.bfloat16][2:]
+        for bsz in POSE_BATCHES:
+            x, wt, b = _chain_inputs(dev, dtype, bsz)
+            y = K.basic_chain(x, wt, b)
+            ref = K.basic_chain_plain(x, wt, b)
+            torch.cuda.synchronize()
+            err, rel = rel_err(y, ref)
+            if rel > TOL[dtype]:
+                raise AssertionError(f'basic_chain {dtype} B={bsz}: max err '
+                                     f'{err} ({rel} of max) > {TOL[dtype]}')
+            errs[(dtype, bsz)] = (err, rel)
+            print(f'K2 basic_chain {str(dtype)[6:]} B={bsz}: max abs err '
+                  f'{err:.3e} (rel {rel:.3e}, tol {TOL[dtype]:.1e})',
+                  flush=True)
+    bsz = max(POSE_BATCHES)
+    x, wt, b = _chain_inputs(dev, torch.bfloat16, bsz)
+    ref = K.basic_chain_plain(x, wt, b)
+    last_dropped = b.clone()
+    last_dropped[7] = 0.0
+    control = check_controls('K2 bf16', ref, {
+        'last conv bias dropped': K.basic_chain_plain(x, wt, last_dropped),
+        'biases off by one channel': K.basic_chain_plain(
+            x, wt, b.roll(1, dims=1))}, TOL[torch.bfloat16])
     ms = cuda_ms(lambda: K.basic_chain(x, wt, b))
     plain_ms = cuda_ms(lambda: K.basic_chain_plain(x, wt, b), iters=10)
     # library yardstick: the same chain as 8 cuDNN convs (+ReLU/residual)
@@ -167,10 +203,10 @@ def check_chain(dev, rec):
                                 padding=1) + v)
         return v
     lib_ms = cuda_ms(lib)
-    bsz, h, w, c = x.shape
+    _, h, w, c = x.shape
     ops = 8 * 2 * bsz * h * w * c * c * 9
     b_ms, b_by = bound(2 * nbytes(x) + nbytes(wt, b), ops, torch.bfloat16)
-    x32, wt32, b32 = out[torch.float32][2:]
+    x32, wt32, b32 = _chain_inputs(dev, torch.float32, bsz)
     ms32 = cuda_ms(lambda: K.basic_chain(x32, wt32, b32))
     b32_ms, b32_by = bound(2 * nbytes(x32) + nbytes(wt32, b32), ops,
                            torch.float32)
@@ -178,17 +214,23 @@ def check_chain(dev, rec):
         name='basic_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/fused_block.cu',
         replaces='simple_hrnet_tpu/ops/pallas/fused_block.py:398',
-        max_abs_err=out[torch.bfloat16][0], tolerance=TOL[torch.bfloat16],
+        max_abs_err=max(errs[(torch.bfloat16, n)][0] for n in POSE_BATCHES),
+        max_rel_err=max(errs[(torch.bfloat16, n)][1] for n in POSE_BATCHES),
+        tolerance=TOL[torch.bfloat16], control_rel=control,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, shape=f'{tuple(x.shape)} bf16',
-        f32_max_abs_err=out[torch.float32][0], f32_ms=ms32,
-        f32_bound_ms=b32_ms, f32_bound_by=b32_by)
-    print(f'K2 basic_chain bf16: {ms:.4f} ms (plain {plain_ms:.4f}, cuDNN '
-          f'{lib_ms:.4f}, bound {b_ms:.5f} {b_by}); f32 {ms32:.4f} ms',
+        checked_batches=list(POSE_BATCHES),
+        f32_max_abs_err=max(errs[(torch.float32, n)][0]
+                            for n in POSE_BATCHES),
+        f32_ms=ms32, f32_bound_ms=b32_ms, f32_bound_by=b32_by)
+    print(f'K2 basic_chain bf16 B={bsz}: {ms:.4f} ms (plain {plain_ms:.4f}, '
+          f'cuDNN {lib_ms:.4f}, bound {b_ms:.5f} {b_by}); f32 {ms32:.4f} ms',
           flush=True)
 
 
-def _fuse_inputs(dev, dtype, n_src, bsz=8, h=96, w=72, c=48):
+def _fuse_inputs(dev, dtype, n_src, bsz, h=96, w=72, c=48):
+    """W48 high-res fuse operands for stage 2 (1 source), 3 (2) or 4 (3);
+    summed biases at folded-BN scale (uniform +-1)."""
     g = torch.Generator().manual_seed(3 + n_src)
     base = torch.randn((bsz, h, w, c), generator=g).to(dev, dtype)
     ys, ws = [], []
@@ -198,7 +240,7 @@ def _fuse_inputs(dev, dtype, n_src, bsz=8, h=96, w=72, c=48):
                               generator=g).to(dev, dtype))
         ws.append(((torch.rand((cj, c), generator=g) * 2 - 1) /
                    np.sqrt(cj)).to(dev, dtype))
-    bias_sum = (torch.rand((c,), generator=g) * 0.2 - 0.1).to(dev)
+    bias_sum = (torch.rand((c,), generator=g) * 2 - 1).to(dev)
     return base, ys, ws, bias_sum
 
 
@@ -207,19 +249,29 @@ def check_fuse_up(dev, rec):
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for n_src in (1, 2, 3):
-            args = _fuse_inputs(dev, dtype, n_src)
-            y = K.fuse_up(*args)
-            ref = K.fuse_up_plain(*args)
-            torch.cuda.synchronize()
-            err, rel = rel_err(y, ref)
-            if rel > TOL[dtype]:
-                raise AssertionError(f'fuse_up {dtype} {n_src} sources: max '
-                                     f'err {err} > {TOL[dtype]} of max')
-            errs[(dtype, n_src)] = err
-            print(f'K3 fuse_up {str(dtype)[6:]} {n_src} src: max abs err '
-                  f'{err:.3e}', flush=True)
-    base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, 3)
+        for bsz in POSE_BATCHES:
+            for n_src in (1, 2, 3):
+                args = _fuse_inputs(dev, dtype, n_src, bsz)
+                y = K.fuse_up(*args)
+                ref = K.fuse_up_plain(*args)
+                torch.cuda.synchronize()
+                err, rel = rel_err(y, ref)
+                if rel > TOL[dtype]:
+                    raise AssertionError(
+                        f'fuse_up {dtype} B={bsz} {n_src} sources: max err '
+                        f'{err} ({rel} of max) > {TOL[dtype]}')
+                errs[(dtype, bsz, n_src)] = (err, rel)
+        worst = max(v for k, v in errs.items() if k[0] == dtype)
+        print(f'K3 fuse_up {str(dtype)[6:]} B={POSE_BATCHES}, 1-3 sources: '
+              f'max abs err {worst[0]:.3e} (rel {worst[1]:.3e}, tol '
+              f'{TOL[dtype]:.1e})', flush=True)
+    bsz = max(POSE_BATCHES)
+    base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, 3, bsz)
+    control = check_controls('K3 bf16', K.fuse_up_plain(base, ys, ws, bsum), {
+        'bias dropped': K.fuse_up_plain(base, ys, ws, torch.zeros_like(bsum)),
+        'bias off by one channel': K.fuse_up_plain(base, ys, ws,
+                                                   bsum.roll(1))},
+        TOL[torch.bfloat16])
     ms = cuda_ms(lambda: K.fuse_up(base, ys, ws, bsum), iters=100)
     plain_ms = cuda_ms(lambda: K.fuse_up_plain(base, ys, ws, bsum))
     # library yardstick: 1x1 cuDNN conv + nearest interpolate + add + ReLU
@@ -237,7 +289,7 @@ def check_fuse_up(dev, rec):
                                       mode='nearest')
         return F.relu(acc)
     lib_ms = cuda_ms(lib, iters=100)
-    bsz, h, w, c = base.shape
+    c = base.shape[-1]
     ops = sum(2 * y.shape[0] * y.shape[1] * y.shape[2] * y.shape[3] * c
               for y in ys) + base.numel() * 5
     b_ms, b_by = bound(2 * nbytes(base) + nbytes(*ys, *ws, bsum), ops,
@@ -246,12 +298,19 @@ def check_fuse_up(dev, rec):
         name='fuse_up', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/fuse_up.cu',
         replaces='simple_hrnet_tpu/ops/pallas/fuse_up.py:161',
-        max_abs_err=errs[(torch.bfloat16, 3)], tolerance=TOL[torch.bfloat16],
+        max_abs_err=max(v[0] for k, v in errs.items()
+                        if k[0] == torch.bfloat16),
+        max_rel_err=max(v[1] for k, v in errs.items()
+                        if k[0] == torch.bfloat16),
+        tolerance=TOL[torch.bfloat16], control_rel=control,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, shape=f'{tuple(base.shape)} + 3 sources bf16',
-        f32_max_abs_err=errs[(torch.float32, 3)])
-    print(f'K3 fuse_up bf16 3 src: {ms:.4f} ms (plain {plain_ms:.4f}, '
-          f'library {lib_ms:.4f}, bound {b_ms:.5f} {b_by})', flush=True)
+        checked_batches=list(POSE_BATCHES),
+        f32_max_abs_err=max(v[0] for k, v in errs.items()
+                            if k[0] == torch.float32))
+    print(f'K3 fuse_up bf16 B={bsz} 3 src: {ms:.4f} ms (plain '
+          f'{plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.5f} {b_by})',
+          flush=True)
 
 
 def check_hrnet_forward(dev, pth):
@@ -327,13 +386,23 @@ def run_main_path(dev, pth, weights, counters):
     print(f'phase 4: SimpleHRNet W48-384x288 + YOLOv3-416 bf16 built in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
     frames = smooth_frames(8)
+    seen = set()
+    hook = model.model.register_forward_pre_hook(
+        lambda _m, args: seen.add(args[0].shape[0]))
 
     for c in counters.values():
         c.launches = 0
     hm1, boxes1, pts1 = model.predict(frames[0])
+    torch.cuda.synchronize()
+    single = {k: c.launches for k, c in counters.items()}
     hm8, boxes8, pts8 = model.predict(frames)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
+    hook.remove()
+    stack = {k: launches[k] - single[k] for k in launches}
+    if not seen <= set(POSE_BATCHES):
+        raise AssertionError(f'the pose model ran at batches {sorted(seen)}; '
+                             f'phase 2 checked the kernels at {POSE_BATCHES}')
 
     n1 = pts1.shape[0]
     n8 = [p.shape[0] for p in pts8]
@@ -351,8 +420,9 @@ def run_main_path(dev, pth, weights, counters):
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f'a kernel was not launched on the main path: '
                              f'{launches}')
-    print(f'phase 4: people {n1} (single) / {n8} (stack of 8); launches on '
-          f'the two predict calls {launches}', flush=True)
+    print(f'phase 4: people {n1} (single) / {n8} (stack of 8); pose '
+          f'batches {sorted(seen)}; launches per predict: 1 frame {single}, '
+          f'8 frames {stack}', flush=True)
 
     # timed as users call it by default: keypoints only (heatmaps stay on
     # the card)
@@ -369,11 +439,12 @@ def run_main_path(dev, pth, weights, counters):
           f'{t["stack8"] * 1e3:.1f} ms ({8 / t["stack8"]:.2f} frames/s)',
           flush=True)
     busy_ms, top = profile_predict(model, frames)
-    return launches, {'people_single': n1, 'people_stack8': n8,
-                      'predict_ms_single': t['single'] * 1e3,
-                      'predict_ms_stack8': t['stack8'] * 1e3,
-                      'stack8_device_busy_ms': busy_ms,
-                      'stack8_top_device_ms': top}
+    return launches, single, stack, {
+        'people_single': n1, 'people_stack8': n8,
+        'pose_batches': sorted(seen),
+        'predict_ms_single': t['single'] * 1e3,
+        'predict_ms_stack8': t['stack8'] * 1e3,
+        'stack8_device_busy_ms': busy_ms, 'stack8_top_device_ms': top}
 
 
 def profile_predict(model, frames):
@@ -453,9 +524,11 @@ def main():
             print(f'seeded weights written in {time.perf_counter() - t0:.1f}'
                   f' s', flush=True)
             check_hrnet_forward(dev, pth)
-            launches, summary = run_main_path(dev, pth, weights, counters)
+            launches, single, stack, summary = run_main_path(
+                dev, pth, weights, counters)
         for name, n in launches.items():
-            rec[name]['launches'] = n
+            rec[name].update(launches=n, launches_single=single[name],
+                             launches_stack8=stack[name])
     print(json.dumps({'kernels': list(rec.values()), 'main_path': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

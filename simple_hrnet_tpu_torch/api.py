@@ -62,9 +62,9 @@ class SimpleHRNet:
 
     Args mirror the JAX facade. ``device``: 'cuda' (default; raises without
     a card) or 'cpu'. ``dtype``: None (f32) or 'bfloat16' (HRNet and
-    darknet convs in bf16, heatmap head f32). ``use_fused_kernels``: run
-    HRNet's branch-0 chain and high-res fusion through the CUDA kernels
-    (default) or through plain PyTorch modules. ``interpolation`` is
+    darknet convs in bf16, heatmap head f32). HRNet's branch-0 chain and
+    high-res fusion always run through the CUDA kernels on the card
+    (``use_fused_kernels=False`` raises). ``interpolation`` is
     validated as in the JAX facade; multi-person crops always use the
     PIL-exact resampler there too.
     """
@@ -100,6 +100,8 @@ class SimpleHRNet:
             raise _not_ported(f'yolo_version={yolo_version!r}')
         if enable_tensorrt or checkpoint_path.endswith('.jaxpose'):
             raise _not_ported('engine export / enable_tensorrt')
+        if not use_fused_kernels:
+            raise _not_ported('use_fused_kernels=False')
         if mesh is not None:
             raise _not_ported('mesh (multi-device inference)')
         if calibration_images is not None or tuple(int8_exclude) or \
@@ -132,8 +134,7 @@ class SimpleHRNet:
         model = load_into(hrnet.HRNet(c, nof_joints),
                           ckpt.load(checkpoint_path))
         self.model = hrnet.prepare_inference(model.to(self.device),
-                                             self.dtype,
-                                             kernels=use_fused_kernels)
+                                             self.dtype)
 
         self.detector = YOLOv3(model_def=yolo_model_def,
                                class_path=yolo_class_path,

@@ -10,8 +10,9 @@
 //   conv1: mid = relu(acc)                 rounded to the activation type
 //   conv2: out = relu(acc + residual)      residual = the block input, read
 //                                          back in the activation type
-// Activations are NHWC, bf16 or f32; weights (8, 3, 3, C, C) HWIO in the
-// activation type; biases (8, C) f32.
+// Activations are NHWC, bf16 or f32, with C a multiple of 8 (every HRNet
+// branch width is); weights (8, 3, 3, C, C) HWIO in the activation type;
+// biases (8, C) f32.
 //
 // Design (simple and right first): one 3x3 conv kernel with the epilogue
 // fused (bias, optional residual, ReLU, one cast at the store), launched 8
@@ -198,33 +199,21 @@ conv3x3_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int oc0 = blockIdx.y * MOCB;
   const int ocn = min(MOCB, C - oc0);
   const int nf = ocp / 16;
-  const bool vec = (C & 7) == 0;  // 16-byte accesses: 8 channels at a time
-  const bf16 zero = __float2bfloat16_rn(0.f);
 
-  // this block's weight slice, once
-  if (vec) {
-    const int ov = ocp / 8;
+  // this block's weight slice, once (C % 8 == 0: 16-byte accesses, 8
+  // channels at a time)
+  const int ov = ocp / 8;
 #pragma unroll 4
-    for (int t = threadIdx.x; t < 9 * cp * ov; t += MNT) {
-      const int o = (t % ov) * 8;
-      const int row = t / ov;  // tap * cp + ci
-      const int ci = row % cp;
-      const int tap = row / cp;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (ci < C && o < ocn)
-        v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * C + ci) * C +
-                                            oc0 + o);
-      *reinterpret_cast<uint4*>(ws + (size_t)row * ocp + o) = v;
-    }
-  } else {
-    for (int t = threadIdx.x; t < 9 * cp * ocp; t += MNT) {
-      const int o = t % ocp;
-      const int ci = (t / ocp) % cp;
-      const int tap = t / (ocp * cp);
-      bf16 v = zero;
-      if (ci < C && o < ocn) v = w[((size_t)tap * C + ci) * C + oc0 + o];
-      ws[t] = v;
-    }
+  for (int t = threadIdx.x; t < 9 * cp * ov; t += MNT) {
+    const int o = (t % ov) * 8;
+    const int row = t / ov;  // tap * cp + ci
+    const int ci = row % cp;
+    const int tap = row / cp;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (ci < C && o < ocn)
+      v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * C + ci) * C +
+                                          oc0 + o);
+    *reinterpret_cast<uint4*>(ws + (size_t)row * ocp + o) = v;
   }
 
   const int tiles_x = (W + MW - 1) / MW;
@@ -239,31 +228,18 @@ conv3x3_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* xb = x + (size_t)b * H * W * C;
 
     __syncthreads();  // every warp is done with the previous tile's xs
-    if (vec) {
-      const int cv = cp / 8;
+    const int cv = cp / 8;
 #pragma unroll 4
-      for (int t = threadIdx.x; t < (MH + 2) * (MW + 2) * cv; t += MNT) {
-        const int ci = (t % cv) * 8;
-        const int p = t / cv;
-        const int gy = y0 + p / (MW + 2) - 1;
-        const int gx = x0 + p % (MW + 2) - 1;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (ci < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = *reinterpret_cast<const uint4*>(xb + ((size_t)gy * W + gx) * C +
-                                              ci);
-        *reinterpret_cast<uint4*>(xs + (size_t)p * cp + ci) = v;
-      }
-    } else {
-      for (int t = threadIdx.x; t < (MH + 2) * (MW + 2) * cp; t += MNT) {
-        const int ci = t % cp;
-        const int p = t / cp;
-        const int gy = y0 + p / (MW + 2) - 1;
-        const int gx = x0 + p % (MW + 2) - 1;
-        bf16 v = zero;
-        if (ci < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = xb[((size_t)gy * W + gx) * C + ci];
-        xs[t] = v;
-      }
+    for (int t = threadIdx.x; t < (MH + 2) * (MW + 2) * cv; t += MNT) {
+      const int ci = (t % cv) * 8;
+      const int p = t / cv;
+      const int gy = y0 + p / (MW + 2) - 1;
+      const int gx = x0 + p % (MW + 2) - 1;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (ci < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = *reinterpret_cast<const uint4*>(xb + ((size_t)gy * W + gx) * C +
+                                            ci);
+      *reinterpret_cast<uint4*>(xs + (size_t)p * cp + ci) = v;
     }
     __syncthreads();
 
@@ -315,26 +291,18 @@ conv3x3_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
         if (gy < H && gx < W && oc < C) {
           const size_t oi = (((size_t)b * H + gy) * W + gx) * C + oc;
           const float* sv = sc + px * 16 + c8;
-          if (vec) {
-            uint4 rv = make_uint4(0u, 0u, 0u, 0u);
-            if (res != nullptr) rv = *reinterpret_cast<const uint4*>(res + oi);
-            const bf16* rb = reinterpret_cast<const bf16*>(&rv);
-            uint4 packed;
-            bf16* ob = reinterpret_cast<bf16*>(&packed);
+          uint4 rv = make_uint4(0u, 0u, 0u, 0u);
+          if (res != nullptr) rv = *reinterpret_cast<const uint4*>(res + oi);
+          const bf16* rb = reinterpret_cast<const bf16*>(&rv);
+          uint4 packed;
+          bf16* ob = reinterpret_cast<bf16*>(&packed);
 #pragma unroll
-            for (int k = 0; k < 8; ++k) {
-              float a = sv[k] + bias[oc + k];
-              if (res != nullptr) a += __bfloat162float(rb[k]);
-              ob[k] = __float2bfloat16_rn(fmaxf(a, 0.f));
-            }
-            *reinterpret_cast<uint4*>(out + oi) = packed;
-          } else {
-            for (int k = 0; k < 8 && oc + k < C; ++k) {
-              float a = sv[k] + bias[oc + k];
-              if (res != nullptr) a += __bfloat162float(res[oi + k]);
-              out[oi + k] = __float2bfloat16_rn(fmaxf(a, 0.f));
-            }
+          for (int k = 0; k < 8; ++k) {
+            float a = sv[k] + bias[oc + k];
+            if (res != nullptr) a += __bfloat162float(rb[k]);
+            ob[k] = __float2bfloat16_rn(fmaxf(a, 0.f));
           }
+          *reinterpret_cast<uint4*>(out + oi) = packed;
         }
         __syncwarp();  // the scratch is read before the next store
       }
@@ -389,12 +357,13 @@ int chain_bf16(const bf16* x, const bf16* w, const float* b, bf16* out,
 }  // namespace
 
 // x, out, mid, tmp: (B, H, W, C) NHWC in the activation type (dtype 0 =
-// f32, 1 = bf16), 16-byte aligned; w (8, 3, 3, C, C) in the activation
-// type; b (8, C) f32. mid and tmp are scratch the caller allocates.
+// f32, 1 = bf16), 16-byte aligned, C a multiple of 8; w (8, 3, 3, C, C)
+// in the activation type; b (8, C) f32. mid and tmp are scratch the caller allocates.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int sht_basic_chain(const void* x, const void* w, const void* b,
                                void* out, void* mid, void* tmp, int B, int H,
                                int W, int C, int dtype, void* stream) {
+  if (C % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* bias = static_cast<const float*>(b);
   if (dtype == 0)

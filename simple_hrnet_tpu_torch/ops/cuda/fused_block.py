@@ -78,6 +78,9 @@ def basic_chain(x: torch.Tensor, w: torch.Tensor,
                          f'{w.dtype}, {b.dtype}')
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError('basic_chain kernel wants contiguous NHWC x, w, b')
+    if c % 8:  # 16-byte accesses, 8 channels at a time
+        raise ValueError(f'basic_chain kernel wants C a multiple of 8 (every '
+                         f'HRNet branch width is), got {c}')
     if w.data_ptr() % 16:
         raise ValueError('basic_chain kernel wants 16-byte aligned weights')
     if x.data_ptr() % 16:  # the kernel's 16-byte vector loads

@@ -236,7 +236,8 @@ def test_whole_slice_matches_jax(facades):
     dict(model_name='PoseResNet'), dict(multiperson=False),
     dict(yolo_version='v5'), dict(dtype='int8'), dict(enable_tensorrt=True),
     dict(mesh=object()), dict(int8_exclude=('stage4',)),
-    dict(yolo_class_path='coco.names'), dict(yolo_model_def='my.cfg')])
+    dict(yolo_class_path='coco.names'), dict(yolo_model_def='my.cfg'),
+    dict(use_fused_kernels=False)])
 def test_unported_options_raise(tmp_path, kwargs):
     path = str(tmp_path / 'w8.pth')
     torch.save(TH.init(8, 17).state_dict(), path)
