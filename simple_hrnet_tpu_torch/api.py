@@ -1,16 +1,19 @@
 """SimpleHRNet — the multi-person inference facade, in PyTorch on CUDA.
 
 Counterpart of ``simple_hrnet_tpu/api.py`` for ``model_name='HRNet'``,
-``multiperson=True``, ``yolo_version='v3'`` and ``dtype`` None (f32) or
-'bfloat16'. ``predict(image)`` keeps the reference's contract (one HWC BGR
-frame or an NHWC stack; (people, joints, 3) arrays of (y, x, conf),
-optionally preceded by heatmaps and bounding boxes).
+``multiperson=True``, ``yolo_version='v3'`` and ``dtype`` None (f32),
+'bfloat16' or 'int8' (post-training quantization of HRNet and YOLOv3, with
+``calibration_images`` and ``int8_exclude``). ``predict(image)`` keeps the
+reference's contract (one HWC BGR frame or an NHWC stack; (people, joints,
+3) arrays of (y, x, conf), optionally preceded by heatmaps and bounding
+boxes).
 
 Pipeline, all on the device: each frame is uploaded once as uint8 and
 flipped BGR -> RGB there; YOLOv3 detects (NMS kernel K1); the valid
 (frame, box) pairs are compacted frame-major by a stable argsort; a
 power-of-two bucket of them is aspect-padded, PIL-exact cropped,
-normalized, posed by HRNet (kernels K2 and K3 in every stage module) and
+normalized, posed by HRNet (a branch-0 chain kernel — K2, the Winograd
+chain B3 or the int8 chain B4 — and K3 in every stage module) and
 argmax-decoded. The first host read is the people count, after the first
 pose batch.
 
@@ -27,6 +30,8 @@ import torch
 
 from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
 from simple_hrnet_tpu_torch.models import hrnet
+from simple_hrnet_tpu_torch.models import layers as L
+from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import decode as D
 from simple_hrnet_tpu_torch.ops import image as I
@@ -61,12 +66,20 @@ class SimpleHRNet:
     """Multi-person 2D pose estimation on an NVIDIA GPU.
 
     Args mirror the JAX facade. ``device``: 'cuda' (default; raises without
-    a card) or 'cpu'. ``dtype``: None (f32) or 'bfloat16' (HRNet and
-    darknet convs in bf16, heatmap head f32). HRNet's branch-0 chain and
-    high-res fusion always run through the CUDA kernels on the card
-    (``use_fused_kernels=False`` raises). ``interpolation`` is
-    validated as in the JAX facade; multi-person crops always use the
-    PIL-exact resampler there too.
+    a card) or 'cpu'. ``dtype``: None (f32), 'bfloat16' (HRNet and darknet
+    convs in bf16, heatmap head f32) or 'int8': TensorRT-style
+    post-training quantization (``models/quantize.py``) of HRNet and of
+    YOLOv3 (not of YOLOv3-tiny, as in the JAX package), bf16 elsewhere —
+    the precision mix of the JAX facade's ``use_fused_kernels=False`` int8
+    graph, with the branch-0 chains on the int8 chain kernel.
+    ``calibration_images`` (HWC RGB frames) calibrate the activation
+    scales instead of smooth synthetic frames; ``int8_exclude`` (dotted
+    path prefixes such as ('stage4',)) keeps those convs bf16. Both raise
+    ``ValueError`` without int8. HRNet's branch-0 chain and high-res fusion
+    always run through the CUDA kernels on the card
+    (``use_fused_kernels=False`` raises). ``interpolation`` is validated as
+    in the JAX facade; multi-person crops always use the PIL-exact
+    resampler there too.
     """
 
     def __init__(self,
@@ -92,6 +105,15 @@ class SimpleHRNet:
                  calibration_images=None,
                  int8_exclude=(),
                  yolo_max_detections: int = 32):
+        if calibration_images is not None and dtype != 'int8':
+            raise ValueError("calibration_images only applies with "
+                             "dtype='int8' (nothing is calibrated "
+                             'otherwise)')
+        self.int8_exclude = tuple(int8_exclude)
+        if self.int8_exclude and dtype != 'int8':
+            raise ValueError("int8_exclude only applies with dtype='int8' "
+                             '(nothing is quantized otherwise)')
+        self.calibration_images = calibration_images
         if model_name not in ('HRNet', 'hrnet'):
             raise _not_ported(f'model_name={model_name!r}')
         if not multiperson:
@@ -104,10 +126,7 @@ class SimpleHRNet:
             raise _not_ported('use_fused_kernels=False')
         if mesh is not None:
             raise _not_ported('mesh (multi-device inference)')
-        if calibration_images is not None or tuple(int8_exclude) or \
-                dtype == 'int8':
-            raise _not_ported("dtype='int8' and its calibration options")
-        if dtype not in (None, 'bfloat16', 'bf16'):
+        if dtype not in (None, 'bfloat16', 'bf16', 'int8'):
             raise ValueError(f'Unsupported dtype {dtype!r}')
         if interpolation not in ('cubic', None, 2, 'linear', 'bilinear', 1,
                                  'bilinear_aa'):
@@ -123,7 +142,8 @@ class SimpleHRNet:
         self.return_bounding_boxes = return_bounding_boxes
         self.max_batch_size = max_batch_size
         self.device = resolve_device(device)
-        self.dtype = torch.bfloat16 if dtype in ('bfloat16', 'bf16') \
+        self.quantize_int8 = dtype == 'int8'
+        self.dtype = torch.bfloat16 if dtype in ('bfloat16', 'bf16', 'int8') \
             else torch.float32
         if self.device.type == 'cuda':
             # true f32 where f32 is computed: the crops' matmuls and f32
@@ -132,9 +152,17 @@ class SimpleHRNet:
             torch.backends.cudnn.allow_tf32 = False
 
         model = load_into(hrnet.HRNet(c, nof_joints),
-                          ckpt.load(checkpoint_path))
-        self.model = hrnet.prepare_inference(model.to(self.device),
-                                             self.dtype)
+                          ckpt.load(checkpoint_path)).to(self.device)
+        amax = None
+        if self.quantize_int8:
+            # calibrate the folded f32 model with its plain blocks, before
+            # prepare_inference packs the chains (api.py:264-277 of the JAX
+            # package calibrates the plain hrnet.apply graph too)
+            L.fold_batch_norm(model.eval())
+            amax = self._calibrate_int8(model)
+            if self.int8_exclude:
+                amax = Q.filter_amax(model, amax, self.int8_exclude)
+        self.model = hrnet.prepare_inference(model, self.dtype, amax=amax)
 
         self.detector = YOLOv3(model_def=yolo_model_def,
                                class_path=yolo_class_path,
@@ -142,8 +170,34 @@ class SimpleHRNet:
                                max_batch_size=max_batch_size,
                                max_detections=yolo_max_detections,
                                device=self.device,
-                               dtype=None if self.dtype == torch.float32
+                               dtype='int8' if self.quantize_int8 else
+                               None if self.dtype == torch.float32
                                else 'bfloat16')
+
+    @torch.no_grad()
+    def _calibrate_int8(self, model: hrnet.HRNet):
+        """Activation amax of every conv of the folded f32 ``model``
+        (JAX facade api.py:362-396): one forward on the
+        ``calibration_images`` (HWC RGB, linearly resized to the model
+        resolution; uint8 frames rounded back to uint8, as cv2.resize does)
+        or, without them, on two smooth synthetic frames in [0, 255]; both
+        normalized like the serving inputs (subtract, then multiply)."""
+        h, w = self.resolution
+        if self.calibration_images is not None:
+            imgs = []
+            for im in self.calibration_images:
+                im = np.asarray(im)
+                r = I.resize_linear(torch.from_numpy(im).to(self.device),
+                                    (h, w))
+                if im.dtype == np.uint8:
+                    r = torch.clamp(torch.round(r), 0.0, 255.0)
+                imgs.append(r.cpu().numpy())
+            imgs = np.stack(imgs)
+        else:
+            imgs = Q.smooth_frames(self.resolution, n=2, lo=0.0, hi=255.0)
+        batch = ((imgs.astype(np.float32) - I.MEAN255)
+                 * I.INV255_STD).astype(np.float32)
+        return Q.calibrate(model, [torch.from_numpy(batch).to(self.device)])
 
     # ------------------------------------------------------------------
     # device pipeline

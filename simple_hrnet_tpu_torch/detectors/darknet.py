@@ -131,23 +131,30 @@ def output_channels(blocks: List[Block], in_channels: int = 3) -> List[int]:
 
 
 class DarknetConv(nn.Module):
-    """One convolutional block: conv (bias only without BN) -> BN."""
+    """One convolutional block: conv (bias only without BN) -> BN ->
+    activation. After int8 quantization (``quantize.quantize_folded`` with
+    ``types=(DarknetConv,)``) its folded conv runs as ``self.qconv``, a
+    ``layers.QConv2d``."""
 
     def __init__(self, c_in: int, blk: Block):
         super().__init__()
         f, k = blk['filters'], blk['size']
         self.stride = blk['stride']
-        self.pad = blk['pad']
+        self.padding = blk['pad']
         if blk['activation'] not in ('leaky', 'linear'):
             raise ValueError(f"unsupported activation {blk['activation']!r}")
         self.activation = blk['activation']
         self.weight = nn.Parameter(torch.empty(f, c_in, k, k))
         self.bias = (None if blk['bn'] else nn.Parameter(torch.empty(f)))
         self.bn = nn.BatchNorm2d(f, eps=1e-5) if blk['bn'] else None
+        self.qconv: Optional[nn.Module] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                     padding=self.pad)
+        if self.qconv is not None:
+            y = self.qconv(x)
+        else:
+            y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                         padding=self.padding)
         if self.bn is not None:
             y = self.bn(y)
         if self.activation == 'leaky':
@@ -322,11 +329,15 @@ def save_darknet_weights(net: Darknet, path: str) -> None:
 
 def fold_weights(net: Darknet, dtype: Optional[torch.dtype] = None
                  ) -> Darknet:
-    """Fold BN for inference and cast the convs to ``dtype`` (the YOLO
-    decode stays f32)."""
+    """Fold BN for inference and cast the convs' weights to ``dtype`` (the
+    YOLO decode stays f32; a quantized block's f32 scales stay f32)."""
     net.fold()
     if dtype is not None:
-        net.to(dtype)
+        for m in net.modules():
+            if isinstance(m, DarknetConv):
+                m.weight.data = m.weight.data.to(dtype)
+                if m.bias is not None:
+                    m.bias.data = m.bias.data.to(dtype)
         net.compute_dtype = dtype
     net.requires_grad_(False)
     return net

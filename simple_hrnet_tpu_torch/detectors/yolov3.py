@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from simple_hrnet_tpu_torch.detectors import darknet
+from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import image as I
 from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
@@ -86,7 +87,10 @@ class YOLOv3:
                  max_batch_size: int = 16,
                  max_detections: int = 32,
                  device: Union[str, torch.device, None] = None,
-                 dtype: Union[str, torch.dtype, None] = None):
+                 dtype: Union[str, torch.dtype, None] = None,
+                 quantize_int8: Optional[bool] = None):
+        if quantize_int8 is not None and dtype != 'int8':
+            raise ValueError("quantize_int8 only applies with dtype='int8'")
         if model_def.endswith('.cfg'):
             raise NotImplementedError('darknet .cfg parsing is not ported '
                                       "yet; use 'yolov3' or 'yolov3-tiny'")
@@ -104,8 +108,18 @@ class YOLOv3:
         else:
             net = darknet.init(self.blocks, seed=0)
         self.device = resolve_device(device)
+        net = darknet.fold_weights(net.to(self.device))
+        self.quantized = False
+        if dtype == 'int8':
+            if quantize_int8 is None:
+                quantize_int8 = sum(b['type'] == 'convolutional'
+                                    for b in self.blocks) >= 20
+            if quantize_int8:
+                self._quantize_int8(net, img_size)
+                self.quantized = True
+            dtype = 'bfloat16'
         self.dtype = _resolve_dtype(dtype)
-        self.net = darknet.fold_weights(net.to(self.device), self.dtype)
+        self.net = darknet.fold_weights(net, self.dtype)
         self.conf_thres = conf_thres
         self.nms_thres = nms_thres
         self.img_size = img_size
@@ -114,6 +128,15 @@ class YOLOv3:
         self.class_ids = torch.tensor(
             (PERSON_CLASS_ID,) if 'person' in classes else tuple(range(80)),
             device=self.device)
+
+    def _quantize_int8(self, net: darknet.Darknet, img_size: int) -> None:
+        """Calibrate the folded f32 network on a smooth synthetic frame and
+        quantize its policy-accepted convs in place."""
+        cal = torch.from_numpy(Q.smooth_frames((img_size, img_size))).to(
+            self.device)
+        amax = Q.calibrate(net, [cal], forward=lambda v: net(v, img_size),
+                           types=(darknet.DarknetConv,))
+        Q.quantize_folded(net, amax, types=(darknet.DarknetConv,))
 
     # -- device pipeline ----------------------------------------------------
 
@@ -205,5 +228,5 @@ def _resolve_dtype(dtype) -> torch.dtype:
         return torch.float32
     if dtype in ('bfloat16', 'bf16', torch.bfloat16):
         return torch.bfloat16
-    raise NotImplementedError(f'dtype {dtype!r} is not ported (None or '
-                              "'bfloat16')")
+    raise ValueError(f"Unsupported dtype {dtype!r} (None, 'bfloat16' or "
+                     "'int8')")

@@ -10,7 +10,8 @@ nested dict of numpy arrays (HWIO ``kernel``, BN ``scale``/``bias``/
 ``mean``/``var``) becomes a flat ``state_dict`` (OIHW ``weight``, BN
 ``weight``/``bias``/``running_mean``/``running_var``). It covers the HRNet
 tree and the darknet tree (``conv_<i>`` nodes with a nested ``bn``), so
-the tests can run both packages on the same weights.
+the tests can run both packages on the same weights. ``amax_from_jax``
+carries a JAX int8 calibration map across the same way.
 """
 
 from __future__ import annotations
@@ -82,3 +83,26 @@ def from_jax_params(tree: Mapping[str, Any], prefix: str = ''
             continue
         flat.update(from_jax_params(v, prefix=f'{path}.'))
     return flat
+
+
+def conv_node_paths(tree: Mapping[str, Any], prefix: tuple = ()
+                    ) -> Dict[int, str]:
+    """{id(conv node): 'dotted.path'} for every node of a JAX-layout param
+    tree that holds a ``kernel`` or ``kernel_q`` — the same walk as the JAX
+    package's ``quantize.node_paths``, whose strings are the port's module
+    paths (both mirror the ``state_dict``)."""
+    out: Dict[int, str] = {}
+    if isinstance(tree, Mapping):
+        if 'kernel' in tree or 'kernel_q' in tree:
+            out[id(tree)] = '.'.join(prefix)
+        for k, v in tree.items():
+            out.update(conv_node_paths(v, prefix + (str(k),)))
+    return out
+
+
+def amax_from_jax(jax_params: Mapping[str, Any], amax: Mapping[int, float]
+                  ) -> Dict[str, float]:
+    """A JAX calibration map ({id(conv node): input amax}, keyed by node
+    identity in ``jax_params``) as the port's map {module path: amax}."""
+    paths = conv_node_paths(jax_params)
+    return {paths[i]: float(a) for i, a in amax.items() if i in paths}

@@ -6,26 +6,37 @@ modules with all-to-all fusion -> 1x1 head computed in f32. Module names
 are the official ``pose_hrnet_*`` ``state_dict`` names.
 
 After ``prepare_inference`` (BN folded, weights cast to the compute type)
-every stage module runs two hand-written CUDA kernels on CUDA tensors:
-  * branch 0's chain of 4 BasicBlocks through ``basic_chain`` (K2);
+every stage module runs hand-written CUDA kernels on CUDA tensors:
+  * branch 0's chain of 4 BasicBlocks through one of
+      - ``int8_chain`` (B4) under int8, when its 8 convs are calibrated and
+        the quantize policy accepts them;
+      - ``wino_chain`` (B3) in bf16 where the JAX package runs its
+        Winograd-H chain: ``G * c == 128`` with ``G = min(4, max(2, 128 //
+        c))`` (W32 and W64), branch-0 H even and W a multiple of 8;
+      - ``basic_chain`` (K2) everywhere else;
   * fusion output 0 (the high-res branch) through ``fuse_up`` (K3).
-At W48 that is 8 launches of each per forward. On CPU tensors the same
-wrappers run their plain PyTorch versions. The JAX package gates both
-kernels on filling 128 TPU lanes; the port does not inherit that gate.
+That is 8 chain and 8 fuse launches per forward. On CPU tensors the same
+wrappers run their plain PyTorch versions. The JAX package also gates K2
+and K3 on filling 128 TPU lanes; the port does not inherit that gate.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.models import layers as L
+from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.ops.cuda.fuse_up import fuse_up
 from simple_hrnet_tpu_torch.ops.cuda.fused_block import (basic_chain,
                                                          pack_chain_weights)
+from simple_hrnet_tpu_torch.ops.cuda.int8_chain import (
+    int8_chain, pack_chain_weights_int8)
+from simple_hrnet_tpu_torch.ops.cuda.winograd_chain import (
+    pack_winograd_weights, wino_chain)
 
 # (n_modules, n_branches) per stage; stage4's last module emits 1 branch
 STAGE_CFG = {
@@ -55,6 +66,7 @@ class StageModule(nn.Module):
 
     def __init__(self, n_branches: int, n_out: int, c: int):
         super().__init__()
+        self.c = c
         self.n_branches = n_branches
         self.branches = nn.ModuleList([
             nn.Sequential(*[L.BasicBlock(c * 2 ** b) for _ in range(4)])
@@ -79,21 +91,49 @@ class StageModule(nn.Module):
                                                L.bn(ci)))
                     row.append(nn.Sequential(*steps))
             self.fuse_layers.append(row)
-        # kernel operands, set by pack() on folded weights
+        # kernel operands, set by pack() on folded weights: the chain's
+        # (basic_chain operands, wino_chain weights or None) or int8_chain's
         self.chain: Optional[tuple] = None
+        self.chain_int8: Optional[dict] = None
         self.fuse: Optional[tuple] = None
 
-    def pack(self, dtype: torch.dtype) -> None:
-        """Pack the folded weights for the CUDA kernels: branch 0's chain
-        and, for a multi-branch module, output 0's fusion sources."""
-        convs = []
-        for blk in self.branches[0]:
-            for conv in (blk.conv1, blk.conv2):
-                if conv.bias is None:
-                    raise ValueError('pack() needs folded BN '
-                                     '(layers.fold_batch_norm first)')
-                convs.append((conv.weight, conv.bias))
-        self.chain = pack_chain_weights(convs, dtype)
+    def pack(self, dtype: torch.dtype,
+             amax: Optional[Dict[str, float]] = None,
+             prefix: str = '') -> None:
+        """Pack the folded f32 weights for the CUDA kernels: branch 0's
+        chain and, for a multi-branch module, output 0's fusion sources.
+        ``amax`` (calibration map by module path, this module at
+        ``prefix``) selects the int8 chain when all 8 chain convs are
+        calibrated and ``quantize.default_policy`` accepts them (the JAX
+        package's ``all(...)`` test, hrnet_fast.py:128-130)."""
+        convs = [conv for blk in self.branches[0]
+                 for conv in (blk.conv1, blk.conv2)]
+        if any(conv.bias is None for conv in convs):
+            raise ValueError('pack() needs folded BN '
+                             '(layers.fold_batch_norm first)')
+        paths = [f'{prefix}.branches.0.{i // 2}.conv{i % 2 + 1}'
+                 for i in range(8)]
+        pairs = [(conv.weight, conv.bias) for conv in convs]
+        if amax is not None and all(
+                amax.get(p, 0.0) > 0.0 and
+                Q.default_policy(Q.conv_shape(conv))
+                for p, conv in zip(paths, convs)):
+            self.chain_int8 = pack_chain_weights_int8(
+                pairs, [amax[p] for p in paths])
+            self.chain = None
+        else:
+            w, b = pack_chain_weights(pairs, torch.float32)
+            # the JAX package packs Winograd weights where G images fill
+            # its 128 lanes (api.py:294-295, hrnet_fast.py:144-157) and runs
+            # them in bf16 (winograd_chain.py:128-135); the Winograd form
+            # rounds differently from the direct conv, so the port follows
+            # the same rule to reproduce those numbers
+            group = min(4, max(2, 128 // self.c))
+            ww = (pack_winograd_weights(w, dtype)
+                  if dtype == torch.bfloat16 and group * self.c == 128
+                  else None)
+            self.chain = (w.to(dtype), b, ww)
+            self.chain_int8 = None
         if self.n_branches > 1:
             srcs = [self.fuse_layers[0][j][0]
                     for j in range(1, self.n_branches)]
@@ -104,11 +144,25 @@ class StageModule(nn.Module):
                        for conv in srcs]
             self.fuse = (weights, bias_sum)
 
+    def _run_chain(self, x: torch.Tensor) -> torch.Tensor:
+        """Branch 0 through its chain kernel (x NCHW, NHWC in memory)."""
+        if self.chain_int8 is not None:
+            q = self.chain_int8
+            return _nchw(int8_chain(_nhwc(x), q['wq'], q['wscale'], q['b'],
+                                    q['ascales']))
+        w, b, ww = self.chain
+        h, wd = x.shape[2], x.shape[3]
+        if ww is not None and h % 2 == 0 and wd % 8 == 0:
+            # wino_pallas_ok's shape rule (winograd_chain.py:128-135)
+            return _nchw(wino_chain(_nhwc(x), ww, b))
+        return _nchw(basic_chain(_nhwc(x), w, b))
+
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         xs = list(xs)
         for b, branch in enumerate(self.branches):
-            if b == 0 and self.chain is not None:
-                xs[0] = _nchw(basic_chain(_nhwc(xs[0]), *self.chain))
+            if b == 0 and (self.chain is not None or
+                           self.chain_int8 is not None):
+                xs[0] = self._run_chain(xs[0])
             else:
                 xs[b] = branch(xs[b])
         fused = []
@@ -190,16 +244,27 @@ def init(c: int = 48, nof_joints: int = 17, seed: int = 0) -> HRNet:
 
 
 def prepare_inference(model: HRNet, dtype: torch.dtype = torch.float32,
-                      kernels: bool = True) -> HRNet:
-    """Fold BN, pack the kernel operands (``kernels``) and cast every conv
-    but the f32 head to ``dtype``, in place, on the model's current device.
-    With ``kernels=False`` the stage modules run the plain blocks and
-    fusion (the reference-shaped graph)."""
+                      kernels: bool = True,
+                      amax: Optional[Dict[str, float]] = None) -> HRNet:
+    """Fold BN, pack the kernel operands (``kernels``), quantize (``amax``)
+    and cast every other conv but the f32 head to ``dtype``, in place, on
+    the model's current device. With ``kernels=False`` the stage modules
+    run the plain blocks and fusion (the reference-shaped graph).
+
+    ``amax``: the calibration map of ``quantize.calibrate``, taken on the
+    folded f32 model BEFORE this call (a packed chain's convs never run as
+    modules). Every calibrated conv that ``quantize.default_policy`` accepts
+    becomes a ``QConv2d`` — the precision mix of the JAX facade's
+    ``use_fused_kernels=False`` int8 graph — and a chain whose 8 convs
+    qualify runs ``int8_chain``."""
     model.eval()
     L.fold_batch_norm(model)
     if kernels:
-        for m in model.stage_modules():
-            m.pack(dtype)
+        for name, m in model.named_modules():
+            if isinstance(m, StageModule):
+                m.pack(dtype, amax, prefix=name)
+    if amax is not None:
+        Q.quantize_folded(model, amax)
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d) and mod is not model.final_layer:
             mod.to(dtype)

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from simple_hrnet_tpu_torch.ops.int8 import int8_conv2d
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
@@ -82,6 +84,32 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
+
+
+class QConv2d(nn.Module):
+    """A post-training-quantized conv (``quantize.quantize_folded`` builds
+    it from a folded conv): the counterpart of a ``kernel_q`` node of the
+    JAX package's param tree. ``wq`` (Co, k * k * Ci) int8 with columns in
+    (ky, kx, ci) order (2-D, so no memory-format conversion touches it);
+    ``wscale`` (Co,) per-output-channel and ``ascale`` () static input
+    scales and ``bias`` (Co,), all f32. The output has the input's type
+    (the compute type); ``ops.int8.int8_conv2d`` gives the arithmetic."""
+
+    def __init__(self, wq: torch.Tensor, k: int, wscale: torch.Tensor,
+                 ascale: torch.Tensor, bias: torch.Tensor, stride: int,
+                 padding: int):
+        super().__init__()
+        self.k = k
+        self.register_buffer('wq', wq)
+        self.register_buffer('wscale', wscale)
+        self.register_buffer('ascale', ascale)
+        self.register_buffer('bias', bias)
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_conv2d(x, self.wq, self.k, self.wscale, self.ascale,
+                           self.bias, self.stride, self.padding)
 
 
 def _fold_pair(conv: nn.Conv2d, norm: nn.BatchNorm2d) -> None:

@@ -27,7 +27,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
 
-KERNELS = ('nms', 'fused_block', 'fuse_up')
+KERNELS = ('nms', 'fused_block', 'fuse_up', 'winograd_chain', 'int8_chain')
 
 # no --use_fast_math: the NMS kernel must reproduce the plain version's
 # IEEE division slot for slot

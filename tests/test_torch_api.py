@@ -234,15 +234,35 @@ def test_whole_slice_matches_jax(facades):
 
 @pytest.mark.parametrize('kwargs', [
     dict(model_name='PoseResNet'), dict(multiperson=False),
-    dict(yolo_version='v5'), dict(dtype='int8'), dict(enable_tensorrt=True),
-    dict(mesh=object()), dict(int8_exclude=('stage4',)),
-    dict(yolo_class_path='coco.names'), dict(yolo_model_def='my.cfg'),
-    dict(use_fused_kernels=False)])
+    dict(yolo_version='v5'), dict(enable_tensorrt=True),
+    dict(mesh=object()), dict(yolo_class_path='coco.names'),
+    dict(yolo_model_def='my.cfg'), dict(use_fused_kernels=False)])
 def test_unported_options_raise(tmp_path, kwargs):
     path = str(tmp_path / 'w8.pth')
     torch.save(TH.init(8, 17).state_dict(), path)
     with pytest.raises(NotImplementedError):
         SimpleHRNet(8, 17, path, resolution=RES, device='cpu', **kwargs)
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(int8_exclude=('stage4',)),
+    dict(calibration_images=[np.zeros((8, 8, 3), np.uint8)]),
+    dict(int8_exclude=('stage4',), dtype='bfloat16')])
+def test_int8_options_need_int8(tmp_path, kwargs):
+    """As in the JAX facade (api.py:177-196): nothing is calibrated or
+    quantized without dtype='int8'."""
+    path = str(tmp_path / 'w8.pth')
+    torch.save(TH.init(8, 17).state_dict(), path)
+    with pytest.raises(ValueError, match="dtype='int8'"):
+        SimpleHRNet(8, 17, path, resolution=RES, device='cpu', **kwargs)
+
+
+def test_int8_exclude_unmatched_prefix_raises(tmp_path):
+    path = str(tmp_path / 'w16.pth')
+    torch.save(TH.init(16, 17).state_dict(), path)
+    with pytest.raises(ValueError, match='match no conv'):
+        SimpleHRNet(16, 17, path, resolution=RES, device='cpu', dtype='int8',
+                    yolo_model_def='yolov3-tiny', int8_exclude=('stage_4',))
 
 
 def test_cuda_without_a_card_raises(tmp_path):

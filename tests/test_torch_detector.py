@@ -28,7 +28,7 @@ def tiny(tmp_path_factory):
     path = str(tmp_path_factory.mktemp('det') / 'tiny.pth')
     torch.save(TC.from_jax_params(tree), path)
     tdet = TY.YOLOv3('yolov3-tiny', weights_path=path, device='cpu')
-    return jdet, tdet
+    return jdet, tdet, path
 
 
 def test_block_lists_match_jax():
@@ -40,7 +40,7 @@ def test_block_lists_match_jax():
 
 def test_darknet_forward_matches_jax(tiny):
     """Decoded predictions (N, anchors, 85) in the darknet flatten order."""
-    jdet, tdet = tiny
+    jdet, tdet, _ = tiny
     x = np.random.default_rng(1).uniform(0, 1, (2, 416, 416, 3)).astype(
         np.float32)
     ref = np.asarray(JD.apply(jdet.params, jdet.blocks, x, 416))
@@ -60,7 +60,7 @@ def test_letterbox_matches_jax():
 
 def test_detect_padded_matches_jax(tiny):
     """Same kept boxes, slot for slot; rows within 1e-3 px / 1e-5 score."""
-    jdet, tdet = tiny
+    jdet, tdet, _ = tiny
     frames = np.random.default_rng(3).uniform(0, 255, (2, 120, 160, 3)) \
         .astype(np.uint8)
     jr, jv = (np.asarray(a) for a in jdet.detect_padded(frames))
@@ -104,5 +104,24 @@ def test_darknet_weights_roundtrip_with_jax_loader(tmp_path):
 def test_unported_detector_options_raise():
     with pytest.raises(NotImplementedError):
         TY.YOLOv3('custom.cfg', device='cpu')
-    with pytest.raises(NotImplementedError):
-        TY.YOLOv3('yolov3-tiny', device='cpu', dtype='int8')
+    with pytest.raises(ValueError, match='Unsupported dtype'):
+        TY.YOLOv3('yolov3-tiny', device='cpu', dtype='float16')
+
+
+def test_int8_tiny_detector_matches_jax_quantized_set(tiny):
+    """Under dtype='int8' with quantize_int8=True the port quantizes the
+    same darknet convs as the JAX YOLOv3 without its phase stem, with the
+    same activation scales to 1e-5 (both calibrate the same weights on
+    the same smooth frame; f32 sums differ in order)."""
+    jq = JY.YOLOv3('yolov3-tiny', phase_stem=False, dtype='int8',
+                   quantize_int8=True)
+    ref = {k: float(v['ascale']) for k, v in jq.params.items()
+           if 'kernel_q' in v}
+    assert sorted(ref) == ['conv_2', 'conv_4', 'conv_6']
+    det = TY.YOLOv3('yolov3-tiny', weights_path=tiny[2],
+                    device='cpu', dtype='int8', quantize_int8=True)
+    got = {n: m.qconv.ascale.item() for n, m in det.net.named_modules()
+           if getattr(m, 'qconv', None) is not None}
+    assert sorted(got) == sorted(ref)
+    for k, a in ref.items():
+        assert abs(got[k] - a) <= 1e-5 * a, k
