@@ -9,10 +9,12 @@ Phases (any failure exits nonzero):
      nvcc per source, all at once) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (every batch phase 4 gives the pose model): NMS,
-     the basic chain and the fuse at W48 in bf16 and f32 (TF32 off), the
-     Winograd chain at W32 in bf16, the int8 chain at W32 and W48; show
-     that wrong-input controls fall outside each tolerance; time the
-     kernel, the plain version and one library call; check the int8 conv
+     the basic chain at W48 in bf16 and f32 (TF32 off), the fuse at W48 in
+     bf16 and f32 and at W32 in bf16, the Winograd chain at W32 in bf16,
+     the int8 chain at W32 and W48; show that wrong-input controls fall
+     outside each tolerance; time the kernel, the plain version and one
+     library call (the fuse at W48 with 1-3 sources and at W32 with 3,
+     replayed from CUDA graphs); check the int8 conv
      outside the chains (``torch._int_mm``) against its CPU integer path;
   3. HRNet-W48 forward at 384x288, kernels against the plain path (f32);
   4. three main paths, each ``SimpleHRNet(c, 17, <.pth>, resolution,
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
+L2_BYTES = 50_000_000
 
 # kernel-vs-plain tolerances, relative to max |plain|: f32 differs only by
 # summation order (8 chained convs of 432-term sums); bf16 adds one-ulp
@@ -242,8 +245,14 @@ def check_chain(dev, rec):
           flush=True)
 
 
+# the high-res fuse's base shapes (H, W, C) on the main paths: W48 at
+# 384x288 and W32 at 256x192; sources at /2, /4, /8 with 2C, 4C, 8C channels
+FUSE_W48 = (96, 72, 48)
+FUSE_W32 = (64, 48, 32)
+
+
 def _fuse_inputs(dev, dtype, n_src, bsz, h=96, w=72, c=48):
-    """W48 high-res fuse operands for stage 2 (1 source), 3 (2) or 4 (3);
+    """High-res fuse operands for stage 2 (1 source), 3 (2) or 4 (3);
     summed biases at folded-BN scale (uniform +-1)."""
     g = torch.Generator().manual_seed(3 + n_src)
     base = torch.randn((bsz, h, w, c), generator=g).to(dev, dtype)
@@ -258,37 +267,37 @@ def _fuse_inputs(dev, dtype, n_src, bsz, h=96, w=72, c=48):
     return base, ys, ws, bias_sum
 
 
-def check_fuse_up(dev, rec):
-    from simple_hrnet_tpu_torch.ops.cuda import fuse_up as K
+def graph_ms(fns, iters=20, reps=10):
+    """Mean milliseconds per call of ``fns`` (cycled) replayed from one
+    CUDA graph (CUDA events): the host's launch cost, which exceeds a
+    fuse's device time, stays out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    outs = []  # kept alive, so every captured call writes its own output
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            outs.append(fns[i % len(fns)]())
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph, outs
+    return start.elapsed_time(end) / (reps * iters)
 
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for bsz in POSE_BATCHES:
-            for n_src in (1, 2, 3):
-                args = _fuse_inputs(dev, dtype, n_src, bsz)
-                y = K.fuse_up(*args)
-                ref = K.fuse_up_plain(*args)
-                torch.cuda.synchronize()
-                err, rel = rel_err(y, ref)
-                if rel > TOL[dtype]:
-                    raise AssertionError(
-                        f'fuse_up {dtype} B={bsz} {n_src} sources: max err '
-                        f'{err} ({rel} of max) > {TOL[dtype]}')
-                errs[(dtype, bsz, n_src)] = (err, rel)
-        worst = max(v for k, v in errs.items() if k[0] == dtype)
-        print(f'K3 fuse_up {str(dtype)[6:]} B={POSE_BATCHES}, 1-3 sources: '
-              f'max abs err {worst[0]:.3e} (rel {worst[1]:.3e}, tol '
-              f'{TOL[dtype]:.1e})', flush=True)
-    bsz = max(POSE_BATCHES)
-    base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, 3, bsz)
-    control = check_controls('K3 bf16', K.fuse_up_plain(base, ys, ws, bsum), {
-        'bias dropped': K.fuse_up_plain(base, ys, ws, torch.zeros_like(bsum)),
-        'bias off by one channel': K.fuse_up_plain(base, ys, ws,
-                                                   bsum.roll(1))},
-        TOL[torch.bfloat16])
-    ms = cuda_ms(lambda: K.fuse_up(base, ys, ws, bsum), iters=100)
-    plain_ms = cuda_ms(lambda: K.fuse_up_plain(base, ys, ws, bsum))
-    # library yardstick: 1x1 cuDNN conv + nearest interpolate + add + ReLU
+
+def _lib_fuse(base, ys, ws, bsum):
+    """Library yardstick of the fuse: 1x1 cuDNN conv + nearest interpolate
+    + add + ReLU on the NHWC (channels_last) tensors."""
     basel = base.permute(0, 3, 1, 2)
     ysl = [y.permute(0, 3, 1, 2) for y in ys]
     wsl = [w.t()[:, :, None, None].contiguous(
@@ -302,29 +311,99 @@ def check_fuse_up(dev, rec):
             acc = acc + F.interpolate(t, scale_factor=2 ** (j + 1),
                                       mode='nearest')
         return F.relu(acc)
-    lib_ms = cuda_ms(lib, iters=100)
-    c = base.shape[-1]
-    ops = sum(2 * y.shape[0] * y.shape[1] * y.shape[2] * y.shape[3] * c
-              for y in ys) + base.numel() * 5
-    b_ms, b_by = bound(2 * nbytes(base) + nbytes(*ys, *ws, bsum), ops,
-                       torch.bfloat16)
+    return lib
+
+
+def time_fuse(K, dev, shape, n_src, bsz):
+    """K3, its plain version and the library yardstick at one bf16 shape,
+    cycling over enough input sets (over 100 MB, twice the 50 MB L2) that
+    each call reads its inputs from device memory, as the bound assumes.
+    The kernel and the library call are replayed from CUDA graphs; the
+    plain version, whose time is mostly its own, is timed eagerly."""
+    base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, n_src, bsz,
+                                      *shape)
+    per_call = 2 * nbytes(base) + nbytes(*ys, *ws, bsum)
+    sets = [(base, ys, ws, bsum)] + [
+        (base.clone(), [y.clone() for y in ys], ws, bsum)
+        for _ in range(-(-2 * L2_BYTES // per_call) - 1)]
+    ms = graph_ms([lambda a=a: K.fuse_up(*a) for a in sets])
+    it = iter(range(1 << 30))
+    plain_ms = cuda_ms(lambda: K.fuse_up_plain(*sets[next(it) % len(sets)]),
+                       iters=10)
+    lib_ms = graph_ms([_lib_fuse(*a) for a in sets])
+    c = shape[2]
+    ops = sum(2 * y.numel() * c for y in ys) + base.numel() * 5
+    b_ms, b_by = bound(per_call, ops, torch.bfloat16)
+    t = dict(shape=f'{tuple(base.shape)} + {n_src} source'
+             f'{"s" if n_src > 1 else ""} bf16', ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+             share_of_bound=b_ms / ms, input_sets=len(sets))
+    print(f'K3 fuse_up {t["shape"]}: {ms:.4f} ms (plain {plain_ms:.4f}, '
+          f'library {lib_ms:.4f}, bound {b_ms:.5f} {b_by}, '
+          f'{100 * b_ms / ms:.1f}% of bound)', flush=True)
+    return t
+
+
+def check_fuse_up(dev, rec):
+    from simple_hrnet_tpu_torch.ops.cuda import fuse_up as K
+
+    # f32 at the W48 batches; bf16 at both widths' batches
+    cases = [(torch.float32, FUSE_W48, b) for b in POSE_BATCHES] + \
+        [(torch.bfloat16, FUSE_W48, b) for b in POSE_BATCHES] + \
+        [(torch.bfloat16, FUSE_W32, b) for b in POSE_BATCHES_W32]
+    errs = {}
+    for dtype, shape, bsz in cases:
+        for n_src in (1, 2, 3):
+            args = _fuse_inputs(dev, dtype, n_src, bsz, *shape)
+            y = K.fuse_up(*args)
+            ref = K.fuse_up_plain(*args)
+            torch.cuda.synchronize()
+            err, rel = rel_err(y, ref)
+            if rel > TOL[dtype]:
+                raise AssertionError(
+                    f'fuse_up {dtype} {shape} B={bsz} {n_src} sources: max '
+                    f'err {err} ({rel} of max) > {TOL[dtype]}')
+            errs[(dtype, shape, bsz, n_src)] = (err, rel)
+    worst = {}
+    for dtype, shape, batches in ((torch.float32, FUSE_W48, POSE_BATCHES),
+                                  (torch.bfloat16, FUSE_W48, POSE_BATCHES),
+                                  (torch.bfloat16, FUSE_W32,
+                                   POSE_BATCHES_W32)):
+        worst[(dtype, shape)] = max(v for k, v in errs.items()
+                                    if k[:2] == (dtype, shape))
+        e = worst[(dtype, shape)]
+        print(f'K3 fuse_up {str(dtype)[6:]} base {shape} B={batches}, 1-3 '
+              f'sources: max abs err {e[0]:.3e} (rel {e[1]:.3e}, tol '
+              f'{TOL[dtype]:.1e})', flush=True)
+    bsz = max(POSE_BATCHES)
+    base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, 3, bsz)
+    control = check_controls('K3 bf16', K.fuse_up_plain(base, ys, ws, bsum), {
+        'bias dropped': K.fuse_up_plain(base, ys, ws, torch.zeros_like(bsum)),
+        'bias off by one channel': K.fuse_up_plain(base, ys, ws,
+                                                   bsum.roll(1)),
+        # a tiling or index-shift fault: the last source one pixel off in W
+        'last source shifted one pixel in W': K.fuse_up_plain(
+            base, ys[:-1] + [ys[-1].roll(1, dims=2)], ws, bsum)},
+        TOL[torch.bfloat16])
+    del base, ys, ws, bsum
+    timings = [time_fuse(K, dev, FUSE_W48, n, bsz) for n in (1, 2, 3)] + \
+        [time_fuse(K, dev, FUSE_W32, 3, max(POSE_BATCHES_W32))]
+    head = timings[2]  # W48 stage 4, B=32
+    bf16 = [v for k, v in errs.items() if k[0] == torch.bfloat16]
     rec['fuse_up'] = dict(
         name='fuse_up', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/fuse_up.cu',
         replaces='simple_hrnet_tpu/ops/pallas/fuse_up.py:161',
-        max_abs_err=max(v[0] for k, v in errs.items()
-                        if k[0] == torch.bfloat16),
-        max_rel_err=max(v[1] for k, v in errs.items()
-                        if k[0] == torch.bfloat16),
+        max_abs_err=max(v[0] for v in bf16),
+        max_rel_err=max(v[1] for v in bf16),
+        max_rel_err_w32=worst[(torch.bfloat16, FUSE_W32)][1],
         tolerance=TOL[torch.bfloat16], control_rel=control,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f'{tuple(base.shape)} + 3 sources bf16',
+        ms=head['ms'], plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
+        bound_by=head['bound_by'], library_ms=head['library_ms'],
+        shape=head['shape'], timings=timings,
         checked_batches=list(POSE_BATCHES),
-        f32_max_abs_err=max(v[0] for k, v in errs.items()
-                            if k[0] == torch.float32))
-    print(f'K3 fuse_up bf16 B={bsz} 3 src: {ms:.4f} ms (plain '
-          f'{plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.5f} {b_by})',
-          flush=True)
+        checked_batches_w32=list(POSE_BATCHES_W32),
+        f32_max_abs_err=worst[(torch.float32, FUSE_W48)][0])
 
 
 def _lib_chain(x, wt, b):

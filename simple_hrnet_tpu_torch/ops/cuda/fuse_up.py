@@ -10,12 +10,15 @@ with f_j in {2, 4, 8}; ``weights[j]`` the folded 1x1 conv as a (C_j, C)
 matrix in the activation type; ``bias_sum`` (C,) f32, the sum of the
 sources' folded biases (every output pixel receives exactly one upsampled
 value per source, so the biases collapse into the accumulator's start).
+The kernel wants C a multiple of 8 and each C_j a multiple of 16 (HRNet's
+widths are: C_j = f_j * C) and raises otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
@@ -24,6 +27,7 @@ from simple_hrnet_tpu_torch.ops.cuda.fused_block import DTYPE_CODES
 
 MAX_SOURCES = 3
 _SHIFTS = {2: 1, 4: 2, 8: 3}
+SMEM_LIMIT = 232448  # shared memory one block can use on the H100
 
 
 def _factor(base_shape, y_shape) -> int:
@@ -83,6 +87,24 @@ def fuse_up(base: torch.Tensor, ys: Sequence[torch.Tensor],
                          'weights of one type and an f32 bias_sum')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('fuse_up kernel wants contiguous tensors')
+    if c % 8:  # 16-byte accesses, 8 channels at a time
+        raise ValueError(f'fuse_up kernel wants C a multiple of 8 (every '
+                         f'HRNet branch width is), got {c}')
+    if any(y.shape[-1] % 16 for y in ys):  # 16-deep tensor-core steps
+        raise ValueError(f'fuse_up kernel wants source widths a multiple of '
+                         f'16 (an HRNet source is 2, 4 or 8 times C), got '
+                         f'{[y.shape[-1] for y in ys]}')
+    smem = smem_bytes(c, tuple(y.shape[-1] for y in ys), tuple(factors),
+                      base.dtype)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'fuse_up kernel needs {smem} bytes of shared '
+                         f'memory for C = {c} and sources '
+                         f'{[y.shape[-1] for y in ys]} in {base.dtype}; a '
+                         f'block has {SMEM_LIMIT}')
+    # the kernel's 16-byte copies
+    base = base if base.data_ptr() % 16 == 0 else base.clone()
+    ys = [y if y.data_ptr() % 16 == 0 else y.clone() for y in ys]
+    weights = [w if w.data_ptr() % 16 == 0 else w.clone() for w in weights]
     out = torch.empty_like(base)
     if base.numel() == 0:
         return out
@@ -100,6 +122,20 @@ def fuse_up(base: torch.Tensor, ys: Sequence[torch.Tensor],
 
 
 fuse_up.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(c: int, widths: Tuple[int, ...], factors: Tuple[int, ...],
+               dtype: torch.dtype) -> int:
+    """Shared memory one block of the kernel needs for base width ``c`` and
+    sources of ``widths`` channels at pyramid ``factors``."""
+    n = len(widths)
+    arr = ctypes.c_int * n
+    fn = build.library('fuse_up').sht_fuse_up_smem_bytes
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int, arr, arr, ctypes.c_int, ctypes.c_int]
+    return fn(n, arr(*widths), arr(*(_SHIFTS[f] for f in factors)), c,
+              DTYPE_CODES[dtype])
 
 
 def _fn():
