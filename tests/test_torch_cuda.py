@@ -6,12 +6,12 @@ JAX nor the JAX package, so it runs on a GPU host without JAX:
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py imports JAX.) Tolerances: NMS slot
-for slot; the chain and the fuse (at a ragged 24 x 16 base and at the
-W48 and W32 stage shapes) 1e-4 of max in f32 with TF32 off
-(summation order only), 2^-6 of max in bf16 (chip_smoke.py's limit), the
-same for the Winograd chain; the int8 chain and the int8 conv bit for bit
-(exact int32 cores and the same IEEE f32 epilogue as their plain
-versions).
+for slot; the chain and the fuse (at a ragged 24 x 16 base; the W48 and
+W32 stage shapes are in tests/test_torch_cuda_fuse.py) 1e-4 of max in
+f32 with TF32 off (summation order only), 2^-6 of max in bf16
+(chip_smoke.py's limit), the same for the Winograd chain; the int8 chain
+and the int8 conv bit for bit (exact int32 cores and the same IEEE f32
+epilogue as their plain versions).
 """
 
 import numpy as np
@@ -72,32 +72,6 @@ def test_chain_and_fuse_kernels_match_plain(dev, dtype, tol, c):
     bs = torch.rand(c, device=dev, generator=g) * 2 - 1
     out = TF.fuse_up(x, ys, ws, bs).float()
     ref = TF.fuse_up_plain(x, ys, ws, bs).float()
-    assert (out - ref).abs().max() <= tol * max(1.0, ref.abs().max())
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('n_src', [1, 2, 3])
-@pytest.mark.parametrize('h,w,c', [(96, 72, 48), (64, 48, 32)],
-                         ids=['w48', 'w32'])
-@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2.0 ** -6)])
-def test_fuse_kernel_matches_plain_at_stage_shapes(dev, dtype, tol, h, w, c,
-                                                   n_src):
-    """K3 at the high-res branch shapes of HRNet-W48 384x288 and HRNet-W32
-    256x192, with the sources of stage 2 (1), 3 (2) and 4 (3)."""
-    g = torch.Generator(device=dev).manual_seed(35)
-    base = torch.randn(3, h, w, c, device=dev, generator=g).to(dtype)
-    fs = [2 ** j for j in range(1, n_src + 1)]
-    ys = [torch.randn(3, h // f, w // f, c * f, device=dev,
-                      generator=g).to(dtype) for f in fs]
-    ws = [((torch.rand(c * f, c, device=dev, generator=g) * 2 - 1) /
-           np.sqrt(c * f)).to(dtype) for f in fs]
-    bs = torch.rand(c, device=dev, generator=g) * 2 - 1
-    launches = TF.fuse_up.launches
-    out = TF.fuse_up(base, ys, ws, bs).float()
-    assert TF.fuse_up.launches == launches + 1
-    ref = TF.fuse_up_plain(base, ys, ws, bs).float()
     assert (out - ref).abs().max() <= tol * max(1.0, ref.abs().max())
     torch.cuda.synchronize()
 

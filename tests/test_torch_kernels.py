@@ -6,8 +6,8 @@ kernels run interpreted, as the JAX package's own tests run them):
   * K1 NMS: slot for slot against ``ops.nms.nms_jax``;
   * K2 BasicBlock chain: against ``chain_pallas_grouped`` (G = 1) and 4x
     ``layers.basic_block``;
-  * K3 fuse_up: against the Pallas ``fuse_up`` with 1, 2 and 3 sources,
-    at a toy width and at the W32 stage shape (1, 64, 48, 32).
+  * K3 fuse_up: against the Pallas ``fuse_up`` with 1, 2 and 3 sources
+    (the W32 stage shape is in tests/test_torch_fuse_w32.py).
 f32 comparisons use the house tolerance 2e-4. The CUDA kernels are held
 against the plain versions on a card by tests/test_torch_cuda.py and
 chip_smoke.py.
@@ -162,12 +162,8 @@ def test_chain_plain_bf16_rounds_at_the_kernel_cast_points():
                                rtol=2 ** -7)
 
 
-@pytest.mark.parametrize('n_src,bsz,h,w,c', [
-    (1, 2, 16, 16, 8), (2, 2, 16, 16, 8), (3, 2, 16, 16, 8),
-    # the W32 stage shape (HRNet-W32 at 256x192)
-    (1, 1, 64, 48, 32), (2, 1, 64, 48, 32), (3, 1, 64, 48, 32)],
-    ids=['1', '2', '3', 'w32-1', 'w32-2', 'w32-3'])
-def test_fuse_up_plain_matches_jax_fuse_up(n_src, bsz, h, w, c):
+def check_fuse_up_plain_against_jax(n_src, bsz, h, w, c):
+    """K3's plain version against the Pallas ``fuse_up``."""
     rng = np.random.default_rng(20 + n_src)
     base = rng.standard_normal((bsz, h, w, c)).astype(np.float32)
     ys, kernels, biases = [], [], []
@@ -192,6 +188,11 @@ def test_fuse_up_plain_matches_jax_fuse_up(n_src, bsz, h, w, c):
                       for k in kernels],
                      torch.from_numpy(bias_sum)).numpy()
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize('n_src', [1, 2, 3])
+def test_fuse_up_plain_matches_jax_fuse_up(n_src):
+    check_fuse_up_plain_against_jax(n_src, 2, 16, 16, 8)
 
 
 def test_fuse_up_rejects_non_pyramid_source():
