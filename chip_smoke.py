@@ -13,9 +13,12 @@ Phases (any failure exits nonzero):
      bf16 and f32 and at W32 in bf16, the Winograd chain at W32 in bf16,
      the int8 chain at W32 and W48; show that wrong-input controls fall
      outside each tolerance; time the kernel, the plain version and one
-     library call (the fuse at W48 with 1-3 sources and at W32 with 3,
-     replayed from CUDA graphs); check the int8 conv
-     outside the chains (``torch._int_mm``) against its CPU integer path;
+     library call (the kernels and the library calls replayed from CUDA
+     graphs over input sets larger than twice the L2: the basic chain at
+     W48 batches 32 and 2, the fuse at W48 with 1-3 sources and at W32
+     with 3, the Winograd and int8 chains at W32 batch 32); check the int8
+     conv outside the chains (``torch._int_mm``) against its CPU integer
+     path;
   3. HRNet-W48 forward at 384x288, kernels against the plain path (f32);
   4. three main paths, each ``SimpleHRNet(c, 17, <.pth>, resolution,
      multiperson=True, yolo_model_def='yolov3', dtype)`` from a seeded
@@ -177,6 +180,40 @@ def check_controls(what, ref, wrong, tol):
     return min(rels.values())
 
 
+def input_sets(first, per_call, clone):
+    """``first`` and enough copies (``clone(first)``) that the sets together
+    hold over 100 MB, twice the 50 MB L2: cycling over them, each call reads
+    its inputs from device memory, as the bound assumes."""
+    return [first] + [clone(first)
+                      for _ in range(-(-2 * L2_BYTES // per_call) - 1)]
+
+
+def time_chain(K, dev, bsz):
+    """K2 bf16 at the W48 branch-0 shape, its plain version and cuDNN's
+    chain, timed as ``time_fuse`` times K3: the kernel and the library call
+    replayed from CUDA graphs over input sets larger than twice the L2, the
+    plain version eagerly."""
+    x, wt, b = _chain_inputs(dev, torch.bfloat16, bsz)
+    per_call = 2 * nbytes(x) + nbytes(wt, b)
+    sets = input_sets((x, wt, b), per_call, lambda a: (a[0].clone(), *a[1:]))
+    ms = graph_ms([lambda a=a: K.basic_chain(*a) for a in sets])
+    it = iter(range(1 << 30))
+    plain_ms = cuda_ms(lambda: K.basic_chain_plain(*sets[next(it) %
+                                                         len(sets)]),
+                       iters=10)
+    lib_ms = graph_ms([_lib_chain(*a) for a in sets])
+    _, h, w, c = x.shape
+    ops = 8 * 2 * bsz * h * w * c * c * 9
+    b_ms, b_by = bound(per_call, ops, torch.bfloat16)
+    t = dict(shape=f'{tuple(x.shape)} bf16', ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+             share_of_bound=b_ms / ms, input_sets=len(sets))
+    print(f'K2 basic_chain {t["shape"]}: {ms:.4f} ms (plain {plain_ms:.4f}, '
+          f'cuDNN {lib_ms:.4f}, bound {b_ms:.5f} {b_by}, '
+          f'{100 * b_ms / ms:.1f}% of bound)', flush=True)
+    return t
+
+
 def check_chain(dev, rec):
     from simple_hrnet_tpu_torch.ops.cuda import fused_block as K
 
@@ -204,29 +241,15 @@ def check_chain(dev, rec):
         'last conv bias dropped': K.basic_chain_plain(x, wt, last_dropped),
         'biases off by one channel': K.basic_chain_plain(
             x, wt, b.roll(1, dims=1))}, TOL[torch.bfloat16])
-    ms = cuda_ms(lambda: K.basic_chain(x, wt, b))
-    plain_ms = cuda_ms(lambda: K.basic_chain_plain(x, wt, b), iters=10)
-    # library yardstick: the same chain as 8 cuDNN convs (+ReLU/residual)
-    xl = x.permute(0, 3, 1, 2)  # channels_last view
-    wl = [wt[i].permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last) for i in range(8)]
-    bl = [b[i].to(x.dtype) for i in range(8)]
-
-    def lib():
-        v = xl
-        for blk in range(4):
-            mid = F.relu(F.conv2d(v, wl[2 * blk], bl[2 * blk], padding=1))
-            v = F.relu(F.conv2d(mid, wl[2 * blk + 1], bl[2 * blk + 1],
-                                padding=1) + v)
-        return v
-    lib_ms = cuda_ms(lib)
-    _, h, w, c = x.shape
-    ops = 8 * 2 * bsz * h * w * c * c * 9
-    b_ms, b_by = bound(2 * nbytes(x) + nbytes(wt, b), ops, torch.bfloat16)
+    del x, wt, b, ref, last_dropped
+    # the 8-frame path's batch, then the 1-frame path's smallest
+    head, small = time_chain(K, dev, bsz), time_chain(K, dev,
+                                                      min(POSE_BATCHES))
     x32, wt32, b32 = _chain_inputs(dev, torch.float32, bsz)
     ms32 = cuda_ms(lambda: K.basic_chain(x32, wt32, b32))
-    b32_ms, b32_by = bound(2 * nbytes(x32) + nbytes(wt32, b32), ops,
-                           torch.float32)
+    _, h, w, c = x32.shape
+    b32_ms, b32_by = bound(2 * nbytes(x32) + nbytes(wt32, b32),
+                           8 * 2 * bsz * h * w * c * c * 9, torch.float32)
     rec['basic_chain'] = dict(
         name='basic_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/fused_block.cu',
@@ -234,15 +257,15 @@ def check_chain(dev, rec):
         max_abs_err=max(errs[(torch.bfloat16, n)][0] for n in POSE_BATCHES),
         max_rel_err=max(errs[(torch.bfloat16, n)][1] for n in POSE_BATCHES),
         tolerance=TOL[torch.bfloat16], control_rel=control,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f'{tuple(x.shape)} bf16',
+        ms=head['ms'], plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
+        bound_by=head['bound_by'], library_ms=head['library_ms'],
+        shape=head['shape'], timings=[head, small],
         checked_batches=list(POSE_BATCHES),
         f32_max_abs_err=max(errs[(torch.float32, n)][0]
                             for n in POSE_BATCHES),
         f32_ms=ms32, f32_bound_ms=b32_ms, f32_bound_by=b32_by)
-    print(f'K2 basic_chain bf16 B={bsz}: {ms:.4f} ms (plain {plain_ms:.4f}, '
-          f'cuDNN {lib_ms:.4f}, bound {b_ms:.5f} {b_by}); f32 {ms32:.4f} ms',
-          flush=True)
+    print(f'K2 basic_chain f32 B={bsz}: {ms32:.4f} ms (bound {b32_ms:.5f} '
+          f'{b32_by})', flush=True)
 
 
 # the high-res fuse's base shapes (H, W, C) on the main paths: W48 at
@@ -269,8 +292,8 @@ def _fuse_inputs(dev, dtype, n_src, bsz, h=96, w=72, c=48):
 
 def graph_ms(fns, iters=20, reps=10):
     """Mean milliseconds per call of ``fns`` (cycled) replayed from one
-    CUDA graph (CUDA events): the host's launch cost, which exceeds a
-    fuse's device time, stays out of the reading."""
+    CUDA graph (CUDA events): the host's launch cost, which can exceed a
+    kernel's device time, stays out of the reading."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -323,9 +346,9 @@ def time_fuse(K, dev, shape, n_src, bsz):
     base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, n_src, bsz,
                                       *shape)
     per_call = 2 * nbytes(base) + nbytes(*ys, *ws, bsum)
-    sets = [(base, ys, ws, bsum)] + [
-        (base.clone(), [y.clone() for y in ys], ws, bsum)
-        for _ in range(-(-2 * L2_BYTES // per_call) - 1)]
+    sets = input_sets((base, ys, ws, bsum), per_call,
+                      lambda a: (a[0].clone(), [y.clone() for y in a[1]],
+                                 *a[2:]))
     ms = graph_ms([lambda a=a: K.fuse_up(*a) for a in sets])
     it = iter(range(1 << 30))
     plain_ms = cuda_ms(lambda: K.fuse_up_plain(*sets[next(it) % len(sets)]),
@@ -452,14 +475,19 @@ def check_wino(dev, rec):
         'last conv bias dropped': K.wino_chain_plain(x, ww, last_dropped),
         'biases off by one channel': K.wino_chain_plain(
             x, ww, b.roll(1, dims=1))}, tol)
-    ms = cuda_ms(lambda: K.wino_chain(x, ww, b))
+    # timed as time_fuse times K3: graph-replayed over input sets larger
+    # than twice the L2 (the plain version eagerly)
+    per_call = 2 * nbytes(x) + nbytes(ww, b)
+    sets = input_sets(x, per_call, torch.clone)
+    ms = graph_ms([lambda v=v: K.wino_chain(v, ww, b) for v in sets])
     plain_ms = cuda_ms(lambda: K.wino_chain_plain(x, ww, b), iters=10)
-    lib_ms = cuda_ms(_lib_chain(x, wt.bfloat16(), b))
+    wl = wt.bfloat16()
+    lib_ms = graph_ms([_lib_chain(v, wl, b) for v in sets])
     bsz, h, w, c = x.shape
     # 4 Winograd terms over h/2 row pairs with 3C-deep dots: 2/3 of the
     # direct chain's MACs
     ops = 8 * 2 * bsz * (h // 2) * w * 4 * 3 * c * c
-    b_ms, b_by = bound(2 * nbytes(x) + nbytes(ww, b), ops, torch.bfloat16)
+    b_ms, b_by = bound(per_call, ops, torch.bfloat16)
     rec['wino_chain'] = dict(
         name='wino_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/winograd_chain.cu',
@@ -467,7 +495,7 @@ def check_wino(dev, rec):
         max_abs_err=worst[0], max_rel_err=worst[1], tolerance=tol,
         control_rel=control, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, shape=f'{tuple(x.shape)} bf16',
-        checked_batches=list(POSE_BATCHES_W32))
+        input_sets=len(sets), checked_batches=list(POSE_BATCHES_W32))
     print(f'B3 wino_chain bf16 B={bsz}: {ms:.4f} ms (plain {plain_ms:.4f}, '
           f'cuDNN {lib_ms:.4f}, bound {b_ms:.5f} {b_by})', flush=True)
 
@@ -526,8 +554,6 @@ def check_int8_chain(dev, rec):
         'biases off by one channel': K.int8_chain_plain(
             x, q['wq'], q['wscale'], q['b'].roll(1, dims=1), q['ascales'])},
         TOL_INT8)
-    ms = cuda_ms(lambda: K.int8_chain(x, *args))
-    plain_ms = cuda_ms(lambda: K.int8_chain_plain(x, *args), iters=5)
     # library yardstick: 8 torch._int_mm convs over the int8 patch matrix
     # with the same quantize / dequantize / bias / residual / ReLU epilogue
     inva = torch.reciprocal(q['ascales'])
@@ -539,16 +565,21 @@ def check_int8_chain(dev, rec):
         acc = Q8.int8_conv_acc(Q8.quantize(v, inva[i]), wl[i], 3, 1, 1)
         return acc.float() * alpha[i] + q['b'][i]
 
-    def lib():
-        v = x
+    def lib(v):
         for blk in range(4):
             mid = torch.relu(qconv(v, 2 * blk))
             v = torch.relu(qconv(mid, 2 * blk + 1) + v.float()).to(x.dtype)
         return v
-    lib_ms = cuda_ms(lib)
+    # timed as time_fuse times K3: graph-replayed over input sets larger
+    # than twice the L2 (the plain version eagerly)
+    per_call = 2 * nbytes(x) + nbytes(*args)
+    sets = input_sets(x, per_call, torch.clone)
+    ms = graph_ms([lambda v=v: K.int8_chain(v, *args) for v in sets])
+    plain_ms = cuda_ms(lambda: K.int8_chain_plain(x, *args), iters=5)
+    lib_ms = graph_ms([lambda v=v: lib(v) for v in sets])
     bsz, h, w, c = x.shape
     ops = 8 * 2 * bsz * h * w * c * c * 9
-    b_ms, b_by = bound(2 * nbytes(x) + nbytes(*args), ops, torch.int8)
+    b_ms, b_by = bound(per_call, ops, torch.int8)
     rec['int8_chain'] = dict(
         name='int8_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/int8_chain.cu',
@@ -556,7 +587,7 @@ def check_int8_chain(dev, rec):
         max_abs_err=worst[0], max_rel_err=worst[1], tolerance=TOL_INT8,
         control_rel=control, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, shape=f'{tuple(x.shape)} bf16',
-        checked_batches=list(POSE_BATCHES_W32),
+        input_sets=len(sets), checked_batches=list(POSE_BATCHES_W32),
         checked_batches_w48=list(POSE_BATCHES))
     print(f'B4 int8_chain B={bsz}: {ms:.4f} ms (plain {plain_ms:.4f}, '
           f'_int_mm {lib_ms:.4f}, bound {b_ms:.5f} {b_by})', flush=True)

@@ -22,6 +22,9 @@ import torch.nn.functional as F
 from simple_hrnet_tpu_torch.ops.cuda import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the widths the bf16 (tensor-core) path is compiled for; f32 takes any
+# multiple of 8
+BF16_WIDTHS = (16, 32, 48, 64)
 
 
 def pack_chain_weights(convs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -81,6 +84,12 @@ def basic_chain(x: torch.Tensor, w: torch.Tensor,
     if c % 8:  # 16-byte accesses, 8 channels at a time
         raise ValueError(f'basic_chain kernel wants C a multiple of 8 (every '
                          f'HRNet branch width is), got {c}')
+    if x.dtype == torch.bfloat16 and c not in BF16_WIDTHS:
+        # the tensor-core path is compiled for these widths (its registers
+        # hold all C output channels of 64 pixels a warp)
+        raise ValueError(f'basic_chain bf16 kernel takes C in {BF16_WIDTHS} '
+                         f'(HRNet-W32 and W48 branch 0 are 32 and 48), got '
+                         f'{c}')
     if w.data_ptr() % 16:
         raise ValueError('basic_chain kernel wants 16-byte aligned weights')
     if x.data_ptr() % 16:  # the kernel's 16-byte vector loads

@@ -1,15 +1,23 @@
-"""Where K3's time goes: the high-res fuse kernel with phases left out.
+"""Where K3's and K2's time goes: the kernels with phases left out.
 
-Builds copies of ``csrc/fuse_up.cu`` with some of the three phases of its
-tile loop removed — the ring's copies ('loads'), the tensor-core products
-('products') and the epilogue with its stores ('epilogue') — and times each
-copy beside the whole kernel at the shapes ``chip_smoke.py`` times (HRNet-W48
-stage 2-4 and HRNet-W32 stage 4, bf16, 32 crops), the same way: replayed
-from a CUDA graph over input sets larger than L2. A copy without some phase
-computes garbage; only its time means something. Needs a card and ``nvcc``;
-run from the repository root:
+Builds copies of ``csrc/fuse_up.cu`` (K3, the high-res fuse) and
+``csrc/fused_block.cu`` (K2, the branch-0 chain) with some of the three
+phases of their tile loops removed — the ring's copies ('loads'), the
+tensor-core products ('products') and the epilogue with its stores
+('epilogue') — and times each copy beside the whole kernel the way
+``chip_smoke.py`` times them: replayed from a CUDA graph over input sets
+larger than twice the L2. K3 runs at the shapes ``chip_smoke.py`` times
+(HRNet-W48 stage 2-4 and HRNet-W32 stage 4, bf16, 32 crops), K2 in bf16 at
+the W48 branch-0 shape with 32 and 2 crops. A copy without some phase
+computes garbage; only its time means something. Needs a card and
+``nvcc``; run from the repository root:
 
-    python3 -m simple_hrnet_tpu_torch.utils.fuse_up_phases
+    python3 -m simple_hrnet_tpu_torch.utils.fuse_up_phases [--kernel K]
+        [--chain-baseline OTHER/fused_block.cu ...]
+
+``--chain-baseline`` (repeatable) also builds other versions of
+``fused_block.cu`` (for example the parent commit's) and times each whole
+beside K2's variants, so versions are compared in one run on one card.
 
 Prints one line per variant (ms at each shape), a streaming yardstick (a
 ``copy_`` of the W48 base, to read the card's practical bytes/s) and the
@@ -18,6 +26,7 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import re
@@ -27,7 +36,8 @@ import sys
 import torch
 
 from simple_hrnet_tpu_torch.ops.cuda import build
-from simple_hrnet_tpu_torch.ops.cuda import fuse_up as K
+from simple_hrnet_tpu_torch.ops.cuda import fuse_up as K3
+from simple_hrnet_tpu_torch.ops.cuda import fused_block as K2
 
 # variant -> the phases it keeps
 VARIANTS = {
@@ -39,71 +49,91 @@ VARIANTS = {
     'epilogue only': ('epilogue',),
     'skeleton': (),
 }
+# kernel source -> the phase calls of its tile loop (regexes)
 PHASE_CALLS = {
-    'loads': r'load_tile<T>\(a, ring [^;]*;',
-    'products': r'products\(a, wsm, slot, tsm\);',
-    'epilogue': r'epilogue<T>\(a, slot, tsm, bias, item\);',
+    'fuse_up': {
+        'loads': r'load_tile<T>\(a, ring [^;]*;',
+        'products': r'products\(a, wsm, slot, tsm\);',
+        'epilogue': r'epilogue<T>\(a, slot, tsm, bias, item\);',
+    },
+    'fused_block': {
+        'loads': r'load_tile<C>\(a, ring \+ [^;]*;',
+        'products': r'products<C>\([^;]*;',
+        'epilogue': r'epilogue<C>\([^;]*;',
+    },
+}
+# what takes a removed call's place: K2's products leave their results in
+# registers, so without the epilogue a sum of them is stored where no run
+# looks (a negative zero sum), or the compiler would drop the products too
+REMOVED = {
+    ('fused_block', 'epilogue'):
+        '{ float s_ = 0.f; _Pragma("unroll") for (int i_ = 0; i_ < '
+        '(int)(sizeof(acc) / sizeof(float)); ++i_) s_ += (&acc[0][0][0])[i_];'
+        ' if (__float_as_uint(s_) == 0x80000000u) a.out[0] = '
+        '__float2bfloat16_rn(s_); }',
 }
 
 
-def variant_source(keep) -> str:
-    with open(os.path.join(build.CSRC_DIR, 'fuse_up.cu')) as f:
+def variant_source(name, keep) -> str:
+    with open(os.path.join(build.CSRC_DIR, f'{name}.cu')) as f:
         src = f.read()
-    for phase, call in PHASE_CALLS.items():
-        src, n = re.subn(call, ';' if phase not in keep else r'\g<0>', src)
+    for phase, call in PHASE_CALLS[name].items():
+        gone = REMOVED.get((name, phase), ';').replace('\\', '\\\\')
+        src, n = re.subn(call, gone if phase not in keep else r'\g<0>', src)
         if not n:
-            raise RuntimeError(f'no {phase} call found in fuse_up.cu')
+            raise RuntimeError(f'no {phase} call found in {name}.cu')
     return src
 
 
-def build_variants(out_dir):
-    """Compile every variant, one nvcc each, all at once."""
+def build_variants(name, out_dir, extra=None):
+    """Compile every variant of kernel ``name`` (and each ``extra`` label:
+    source path), one nvcc each, all at once."""
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for i, (name, keep) in enumerate(VARIANTS.items()):
-        cu = os.path.join(out_dir, f'fuse_up_v{i}.cu')
-        so = os.path.join(out_dir, f'libfuse_up_v{i}.so')
+    sources = {}
+    for i, (label, keep) in enumerate(VARIANTS.items()):
+        cu = os.path.join(out_dir, f'{name}_v{i}.cu')
         with open(cu, 'w') as f:
-            f.write(variant_source(keep))
-        procs[name] = (subprocess.Popen(
+            f.write(variant_source(name, keep))
+        sources[label] = cu
+    sources.update(extra or {})
+    procs = {}
+    for i, (label, cu) in enumerate(sources.items()):
+        so = os.path.join(out_dir, f'lib{name}_v{i}.so')
+        procs[label] = (subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, '-o', so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
-    for name, (proc, so) in procs.items():
+    for label, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f'nvcc failed for "{name}":\n{out}')
-        libs[name] = ctypes.CDLL(so)
+            raise RuntimeError(f'nvcc failed for "{label}":\n{out}')
+        libs[label] = ctypes.CDLL(so)
     return libs
 
 
-def main():
-    import chip_smoke as cs  # the repository root's: shapes, inputs, timing
-
-    if not torch.cuda.is_available():
-        print('fuse_up_phases: no CUDA device visible', file=sys.stderr)
-        return 1
-    libs = build_variants(os.path.join(build.BUILD_DIR, 'fuse_up_phases'))
-    dev = torch.device('cuda', 0)
+def fuse_up_phases(cs, dev):
+    libs = build_variants('fuse_up', os.path.join(build.BUILD_DIR,
+                                                  'fuse_up_phases'))
     cases = [(cs.FUSE_W48, n) for n in (1, 2, 3)] + [(cs.FUSE_W32, 3)]
     inputs = []
     for shape, n_src in cases:
         args = cs._fuse_inputs(dev, torch.bfloat16, n_src, 32, *shape)
         per_call = 2 * cs.nbytes(args[0]) + cs.nbytes(*args[1], *args[2],
                                                       args[3])
-        sets = [args] + [(args[0].clone(), [y.clone() for y in args[1]],
-                          args[2], args[3])
-                         for _ in range(-(-2 * cs.L2_BYTES // per_call) - 1)]
-        inputs.append(sets)
-    print('ms at (32, 96, 72, 48) + 1 / 2 / 3 sources and (32, 64, 48, 32) '
-          '+ 3 sources, bf16:')
-    for name, lib in libs.items():
+        inputs.append(cs.input_sets(
+            args, per_call,
+            lambda a: (a[0].clone(), [y.clone() for y in a[1]], *a[2:])))
+    print('K3 fuse_up, ms at (32, 96, 72, 48) + 1 / 2 / 3 sources and '
+          '(32, 64, 48, 32) + 3 sources, bf16:')
+    for label, lib in libs.items():
         build._LIBS['fuse_up'] = lib
-        K.smem_bytes.cache_clear()
-        row = [cs.graph_ms([lambda a=a: K.fuse_up(*a) for a in sets])
+        K3.smem_bytes.cache_clear()
+        row = [cs.graph_ms([lambda a=a: K3.fuse_up(*a) for a in sets])
                for sets in inputs]
-        print(f'  {name:>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
+        print(f'  {label:>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
               flush=True)
+    build._LIBS.pop('fuse_up')
+    K3.smem_bytes.cache_clear()
     base = [a[0] for a in inputs[2]]
     outs = [torch.empty_like(b) for b in base]
     ms = cs.graph_ms([lambda b=b, o=o: o.copy_(b)
@@ -111,6 +141,48 @@ def main():
     moved = 2 * cs.nbytes(base[0])
     print(f'  copy_ of the W48 base ({moved / 1e6:.1f} MB moved): '
           f'{ms:.4f} ms, {moved / ms / 1e9:.3f} TB/s')
+
+
+def chain_phases(cs, dev, baselines=()):
+    extra = {os.path.basename(os.path.dirname(os.path.abspath(p))) + '/' +
+             os.path.basename(p): p for p in baselines}
+    libs = build_variants('fused_block', os.path.join(
+        build.BUILD_DIR, 'fused_block_phases'), extra)
+    inputs = []
+    for bsz in (32, 2):
+        args = cs._chain_inputs(dev, torch.bfloat16, bsz)
+        per_call = 2 * cs.nbytes(args[0]) + cs.nbytes(*args[1:])
+        inputs.append(cs.input_sets(args, per_call,
+                                    lambda a: (a[0].clone(), *a[1:])))
+    print('K2 basic_chain, ms at (32, 96, 72, 48) and (2, 96, 72, 48), '
+          'bf16:')
+    for label, lib in libs.items():
+        build._LIBS['fused_block'] = lib
+        row = [cs.graph_ms([lambda a=a: K2.basic_chain(*a) for a in sets])
+               for sets in inputs]
+        print(f'  {label:>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
+              flush=True)
+    build._LIBS.pop('fused_block')
+
+
+def main():
+    import chip_smoke as cs  # the repository root's: shapes, inputs, timing
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--kernel', choices=('fuse_up', 'basic_chain', 'both'),
+                    default='both')
+    ap.add_argument('--chain-baseline', metavar='FUSED_BLOCK_CU',
+                    action='append', default=[],
+                    help='another fused_block.cu to time whole beside K2')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('fuse_up_phases: no CUDA device visible', file=sys.stderr)
+        return 1
+    dev = torch.device('cuda', 0)
+    if args.kernel in ('fuse_up', 'both'):
+        fuse_up_phases(cs, dev)
+    if args.kernel in ('basic_chain', 'both'):
+        chain_phases(cs, dev, args.chain_baseline)
     print(cs.card_line())
     return 0
 
