@@ -16,9 +16,10 @@ Phases (any failure exits nonzero):
      library call (the kernels and the library calls replayed from CUDA
      graphs over input sets larger than twice the L2: the basic chain at
      W48 batches 32 and 2, the fuse at W48 with 1-3 sources and at W32
-     with 3, the Winograd and int8 chains at W32 batch 32); check the int8
-     conv outside the chains (``torch._int_mm``) against its CPU integer
-     path;
+     with 3, the Winograd and int8 chains at W32 batch 32, the Winograd
+     chain also beside K2 at its shape, and failing unless it beats
+     cuDNN's chain); check the int8 conv outside the chains
+     (``torch._int_mm``) against its CPU integer path;
   3. HRNet-W48 forward at 384x288, kernels against the plain path (f32);
   4. three main paths, each ``SimpleHRNet(c, 17, <.pth>, resolution,
      multiperson=True, yolo_model_def='yolov3', dtype)`` from a seeded
@@ -447,16 +448,27 @@ def _lib_chain(x, wt, b):
     return lib
 
 
+def _wino_inputs(dev, bsz, h=64, w=48, c=32):
+    """W32 branch-0 operands: x bf16, U (8, 4, 3C, C) bf16 from the f32
+    weights, the biases, and the weights themselves in bf16 (for K2 and
+    cuDNN at the same shape)."""
+    from simple_hrnet_tpu_torch.ops.cuda import winograd_chain as K
+
+    x, wt, b = _chain_inputs(dev, torch.float32, bsz, h, w, c)
+    return (x.bfloat16(), K.pack_winograd_weights(wt, torch.bfloat16), b,
+            wt.bfloat16())
+
+
 def check_wino(dev, rec):
-    """B3 at the W32 branch-0 shape (B, 64, 48, 32), bf16."""
+    """B3 at the W32 branch-0 shape (B, 64, 48, 32), bf16; timed beside
+    cuDNN's chain and K2 at the same shape (B = 32), and held to beating
+    cuDNN's."""
     from simple_hrnet_tpu_torch.ops.cuda import winograd_chain as K
 
     errs = {}
     tol = TOL[torch.bfloat16]
     for bsz in POSE_BATCHES_W32:
-        x, wt, b = _chain_inputs(dev, torch.float32, bsz, 64, 48, 32)
-        x = x.bfloat16()
-        ww = K.pack_winograd_weights(wt, torch.bfloat16)
+        x, ww, b, _ = _wino_inputs(dev, bsz)
         y = K.wino_chain(x, ww, b)
         ref = K.wino_chain_plain(x, ww, b)
         torch.cuda.synchronize()
@@ -475,29 +487,47 @@ def check_wino(dev, rec):
         'last conv bias dropped': K.wino_chain_plain(x, ww, last_dropped),
         'biases off by one channel': K.wino_chain_plain(
             x, ww, b.roll(1, dims=1))}, tol)
-    # timed as time_fuse times K3: graph-replayed over input sets larger
-    # than twice the L2 (the plain version eagerly)
-    per_call = 2 * nbytes(x) + nbytes(ww, b)
-    sets = input_sets(x, per_call, torch.clone)
-    ms = graph_ms([lambda v=v: K.wino_chain(v, ww, b) for v in sets])
-    plain_ms = cuda_ms(lambda: K.wino_chain_plain(x, ww, b), iters=10)
-    wl = wt.bfloat16()
-    lib_ms = graph_ms([_lib_chain(v, wl, b) for v in sets])
-    bsz, h, w, c = x.shape
-    # 4 Winograd terms over h/2 row pairs with 3C-deep dots: 2/3 of the
-    # direct chain's MACs
-    ops = 8 * 2 * bsz * (h // 2) * w * 4 * 3 * c * c
-    b_ms, b_by = bound(per_call, ops, torch.bfloat16)
+    del ref, last_dropped
+    t = time_wino(dev, max(POSE_BATCHES_W32))
+    if t['ms'] >= t['library_ms']:
+        raise AssertionError(f'wino_chain {t["ms"]:.4f} ms is not faster '
+                             f'than cuDNN\'s chain at {t["shape"]} '
+                             f'({t["library_ms"]:.4f} ms)')
     rec['wino_chain'] = dict(
         name='wino_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/winograd_chain.cu',
         replaces='simple_hrnet_tpu/ops/pallas/winograd_chain.py:151',
         max_abs_err=worst[0], max_rel_err=worst[1], tolerance=tol,
-        control_rel=control, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, shape=f'{tuple(x.shape)} bf16',
-        input_sets=len(sets), checked_batches=list(POSE_BATCHES_W32))
-    print(f'B3 wino_chain bf16 B={bsz}: {ms:.4f} ms (plain {plain_ms:.4f}, '
-          f'cuDNN {lib_ms:.4f}, bound {b_ms:.5f} {b_by})', flush=True)
+        control_rel=control, **t, checked_batches=list(POSE_BATCHES_W32))
+
+
+def time_wino(dev, bsz=32):
+    """B3 bf16 at (bsz, 64, 48, 32), its plain version, cuDNN's chain and K2
+    on the same inputs, timed as ``time_fuse`` times K3: the kernels and the
+    library call replayed from CUDA graphs over input sets larger than
+    twice the L2, the plain version eagerly."""
+    from simple_hrnet_tpu_torch.ops.cuda import fused_block as K2
+    from simple_hrnet_tpu_torch.ops.cuda import winograd_chain as K
+
+    x, ww, b, wl = _wino_inputs(dev, bsz)
+    per_call = 2 * nbytes(x) + nbytes(ww, b)
+    sets = input_sets(x, per_call, torch.clone)
+    ms = graph_ms([lambda v=v: K.wino_chain(v, ww, b) for v in sets])
+    plain_ms = cuda_ms(lambda: K.wino_chain_plain(x, ww, b), iters=10)
+    lib_ms = graph_ms([_lib_chain(v, wl, b) for v in sets])
+    k2_ms = graph_ms([lambda v=v: K2.basic_chain(v, wl, b) for v in sets])
+    _, h, w, c = x.shape
+    # 4 Winograd terms over h/2 row pairs with 3C-deep dots: 2/3 of the
+    # direct chain's MACs
+    ops = 8 * 2 * bsz * (h // 2) * w * 4 * 3 * c * c
+    b_ms, b_by = bound(per_call, ops, torch.bfloat16)
+    t = dict(shape=f'{tuple(x.shape)} bf16', ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, k2_ms=k2_ms, bound_ms=b_ms, bound_by=b_by,
+             share_of_bound=b_ms / ms, input_sets=len(sets))
+    print(f'B3 wino_chain {t["shape"]}: {ms:.4f} ms (plain {plain_ms:.4f}, '
+          f'cuDNN {lib_ms:.4f}, K2 {k2_ms:.4f}, bound {b_ms:.5f} {b_by}, '
+          f'{100 * b_ms / ms:.1f}% of bound)', flush=True)
+    return t
 
 
 def _int8_inputs(dev, bsz, h, w, c):

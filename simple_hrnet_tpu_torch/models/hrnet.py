@@ -6,7 +6,8 @@ modules with all-to-all fusion -> 1x1 head computed in f32. Module names
 are the official ``pose_hrnet_*`` ``state_dict`` names.
 
 After ``prepare_inference`` (BN folded, weights cast to the compute type)
-every stage module runs hand-written CUDA kernels on CUDA tensors:
+every stage module runs hand-written CUDA kernels on CUDA tensors, where
+the kernel takes the module's widths (each kernel's ``takes``):
   * branch 0's chain of 4 BasicBlocks through one of
       - ``int8_chain`` (B4) under int8, when its 8 convs are calibrated and
         the quantize policy accepts them;
@@ -15,9 +16,12 @@ every stage module runs hand-written CUDA kernels on CUDA tensors:
         c))`` (W32 and W64), branch-0 H even and W a multiple of 8;
       - ``basic_chain`` (K2) everywhere else;
   * fusion output 0 (the high-res branch) through ``fuse_up`` (K3).
-That is 8 chain and 8 fuse launches per forward. On CPU tensors the same
-wrappers run their plain PyTorch versions. The JAX package also gates K2
-and K3 on filling 128 TPU lanes; the port does not inherit that gate.
+That is 8 chain and 8 fuse launches per forward at the published widths
+(W32, W48). A chain or fusion that no kernel takes (c = 4, or bf16 c = 8)
+runs the plain modules, on every device, as the JAX package runs XLA convs
+off its lane rule. On CPU tensors the wrappers run their plain PyTorch
+versions. The JAX package also gates K2 and K3 on filling 128 TPU lanes;
+the port does not inherit that gate.
 """
 
 from __future__ import annotations
@@ -30,13 +34,14 @@ import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.models import layers as L
 from simple_hrnet_tpu_torch.models import quantize as Q
-from simple_hrnet_tpu_torch.ops.cuda.fuse_up import fuse_up
-from simple_hrnet_tpu_torch.ops.cuda.fused_block import (basic_chain,
-                                                         pack_chain_weights)
+from simple_hrnet_tpu_torch.ops.cuda.fuse_up import (fuse_up,
+                                                     takes as fuse_up_takes)
+from simple_hrnet_tpu_torch.ops.cuda.fused_block import (
+    basic_chain, pack_chain_weights, takes as basic_chain_takes)
 from simple_hrnet_tpu_torch.ops.cuda.int8_chain import (
-    int8_chain, pack_chain_weights_int8)
+    int8_chain, pack_chain_weights_int8, takes as int8_chain_takes)
 from simple_hrnet_tpu_torch.ops.cuda.winograd_chain import (
-    pack_winograd_weights, wino_chain)
+    pack_winograd_weights, takes as wino_chain_takes, wino_chain)
 
 # (n_modules, n_branches) per stage; stage4's last module emits 1 branch
 STAGE_CFG = {
@@ -105,7 +110,13 @@ class StageModule(nn.Module):
         ``amax`` (calibration map by module path, this module at
         ``prefix``) selects the int8 chain when all 8 chain convs are
         calibrated and ``quantize.default_policy`` accepts them (the JAX
-        package's ``all(...)`` test, hrnet_fast.py:128-130)."""
+        package's ``all(...)`` test, hrnet_fast.py:128-130). A chain or a
+        fusion that no kernel takes (each kernel's ``takes``) stays
+        unpacked, and ``forward`` runs its plain modules, as the JAX
+        package runs XLA convs off its lane rule (api.py:294-295). The
+        decision depends only on the widths and ``dtype``, never on the
+        device."""
+        c = self.c
         convs = [conv for blk in self.branches[0]
                  for conv in (blk.conv1, blk.conv2)]
         if any(conv.bias is None for conv in convs):
@@ -114,35 +125,39 @@ class StageModule(nn.Module):
         paths = [f'{prefix}.branches.0.{i // 2}.conv{i % 2 + 1}'
                  for i in range(8)]
         pairs = [(conv.weight, conv.bias) for conv in convs]
-        if amax is not None and all(
+        self.chain = self.chain_int8 = self.fuse = None
+        if amax is not None and int8_chain_takes(c) and all(
                 amax.get(p, 0.0) > 0.0 and
                 Q.default_policy(Q.conv_shape(conv))
                 for p, conv in zip(paths, convs)):
             self.chain_int8 = pack_chain_weights_int8(
                 pairs, [amax[p] for p in paths])
-            self.chain = None
-        else:
+        elif basic_chain_takes(c, dtype):
             w, b = pack_chain_weights(pairs, torch.float32)
             # the JAX package packs Winograd weights where G images fill
             # its 128 lanes (api.py:294-295, hrnet_fast.py:144-157) and runs
             # them in bf16 (winograd_chain.py:128-135); the Winograd form
             # rounds differently from the direct conv, so the port follows
-            # the same rule to reproduce those numbers
-            group = min(4, max(2, 128 // self.c))
+            # the same rule to reproduce those numbers (every width B3
+            # takes, K2 takes too: it runs where B3's shape rule fails)
+            group = min(4, max(2, 128 // c))
             ww = (pack_winograd_weights(w, dtype)
-                  if dtype == torch.bfloat16 and group * self.c == 128
-                  else None)
+                  if dtype == torch.bfloat16 and group * c == 128
+                  and wino_chain_takes(c) else None)
             self.chain = (w.to(dtype), b, ww)
-            self.chain_int8 = None
         if self.n_branches > 1:
             srcs = [self.fuse_layers[0][j][0]
                     for j in range(1, self.n_branches)]
-            bias_sum = torch.zeros_like(srcs[0].bias, dtype=torch.float32)
-            for conv in srcs:
-                bias_sum = bias_sum + conv.bias.float()
-            weights = [conv.weight[:, :, 0, 0].t().to(dtype).contiguous()
-                       for conv in srcs]
-            self.fuse = (weights, bias_sum)
+            if fuse_up_takes(c, [conv.weight.shape[1] for conv in srcs],
+                             [2 ** j for j in range(1, self.n_branches)],
+                             dtype):
+                bias_sum = torch.zeros_like(srcs[0].bias,
+                                            dtype=torch.float32)
+                for conv in srcs:
+                    bias_sum = bias_sum + conv.bias.float()
+                weights = [conv.weight[:, :, 0, 0].t().to(dtype).contiguous()
+                           for conv in srcs]
+                self.fuse = (weights, bias_sum)
 
     def _run_chain(self, x: torch.Tensor) -> torch.Tensor:
         """Branch 0 through its chain kernel (x NCHW, NHWC in memory)."""

@@ -10,14 +10,14 @@ with f_j in {2, 4, 8}; ``weights[j]`` the folded 1x1 conv as a (C_j, C)
 matrix in the activation type; ``bias_sum`` (C,) f32, the sum of the
 sources' folded biases (every output pixel receives exactly one upsampled
 value per source, so the biases collapse into the accumulator's start).
-The kernel wants C a multiple of 8 and each C_j a multiple of 16 (HRNet's
-widths are: C_j = f_j * C) and raises otherwise.
+The kernel wants C a multiple of 8, each C_j a multiple of 16 (HRNet's
+widths are: C_j = f_j * C) and its shared memory within one block's
+(``takes``), and raises otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -87,20 +87,14 @@ def fuse_up(base: torch.Tensor, ys: Sequence[torch.Tensor],
                          'weights of one type and an f32 bias_sum')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('fuse_up kernel wants contiguous tensors')
-    if c % 8:  # 16-byte accesses, 8 channels at a time
-        raise ValueError(f'fuse_up kernel wants C a multiple of 8 (every '
-                         f'HRNet branch width is), got {c}')
-    if any(y.shape[-1] % 16 for y in ys):  # 16-deep tensor-core steps
-        raise ValueError(f'fuse_up kernel wants source widths a multiple of '
-                         f'16 (an HRNet source is 2, 4 or 8 times C), got '
-                         f'{[y.shape[-1] for y in ys]}')
-    smem = smem_bytes(c, tuple(y.shape[-1] for y in ys), tuple(factors),
-                      base.dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'fuse_up kernel needs {smem} bytes of shared '
-                         f'memory for C = {c} and sources '
-                         f'{[y.shape[-1] for y in ys]} in {base.dtype}; a '
-                         f'block has {SMEM_LIMIT}')
+    widths = tuple(y.shape[-1] for y in ys)
+    if not takes(c, widths, factors, base.dtype):
+        raise ValueError(f'fuse_up kernel takes C a multiple of 8 (every '
+                         f'HRNet branch width is), source widths multiples '
+                         f'of 16 (16-deep tensor-core steps; an HRNet source '
+                         f'is 2, 4 or 8 times C) and at most {SMEM_LIMIT} '
+                         f'bytes of shared memory a block; got C = {c}, '
+                         f'sources {list(widths)} in {base.dtype}')
     # the kernel's 16-byte copies
     base = base if base.data_ptr() % 16 == 0 else base.clone()
     ys = [y if y.data_ptr() % 16 == 0 else y.clone() for y in ys]
@@ -124,11 +118,43 @@ def fuse_up(base: torch.Tensor, ys: Sequence[torch.Tensor],
 fuse_up.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
+def takes(c: int, widths: Sequence[int], factors: Sequence[int],
+          dtype: torch.dtype) -> bool:
+    """Whether the kernel takes a base of width ``c`` with sources of
+    ``widths`` channels at pyramid ``factors`` in ``dtype``. The wrapper
+    refuses everything else with this same rule, and ``StageModule.pack``
+    leaves such a fusion to the plain modules."""
+    return (dtype in DTYPE_CODES and 1 <= len(widths) <= MAX_SOURCES and
+            len(factors) == len(widths) and c > 0 and c % 8 == 0 and
+            all(cj > 0 and cj % 16 == 0 for cj in widths) and
+            all(f in _SHIFTS for f in factors) and
+            smem_bytes(c, tuple(widths), tuple(factors), dtype) <= SMEM_LIMIT)
+
+
 def smem_bytes(c: int, widths: Tuple[int, ...], factors: Tuple[int, ...],
                dtype: torch.dtype) -> int:
     """Shared memory one block of the kernel needs for base width ``c`` and
-    sources of ``widths`` channels at pyramid ``factors``."""
+    sources of ``widths`` channels at pyramid ``factors``: ``make_layout``
+    of ``csrc/fuse_up.cu`` on the host, so that the decision is the same
+    with or without a card (the card tests hold it against the kernel's
+    own ``sht_fuse_up_smem_bytes``)."""
+    tc = dtype == torch.bfloat16
+    esize = 2 if tc else 4
+    teams = stages = 2 if tc else 1
+    # 16 x 8 output tiles; a source's window is its share of one
+    window = [(16 >> _SHIFTS[f]) * (8 >> _SHIFTS[f]) for f in factors]
+    wpitch = (c + 15) // 16 * 16 + 8 if tc else c
+    team_bytes = sum(widths) * wpitch * esize + c * 4
+    slot = 16 * 8 * c + sum(n * (cj + 8 if tc else cj)
+                            for n, cj in zip(window, widths))
+    products = sum(n * (c + 4) for n in window) * 4
+    return min(team_bytes + teams * (stages * slot * esize + products),
+               1 << 30)
+
+
+def lib_smem_bytes(c: int, widths: Tuple[int, ...],
+                   factors: Tuple[int, ...], dtype: torch.dtype) -> int:
+    """``smem_bytes`` as the built kernel computes it (needs ``nvcc``)."""
     n = len(widths)
     arr = ctypes.c_int * n
     fn = build.library('fuse_up').sht_fuse_up_smem_bytes

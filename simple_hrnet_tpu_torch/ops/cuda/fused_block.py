@@ -22,9 +22,19 @@ import torch.nn.functional as F
 from simple_hrnet_tpu_torch.ops.cuda import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the widths the bf16 (tensor-core) path is compiled for; f32 takes any
-# multiple of 8
+# the widths the bf16 (tensor-core) path is compiled for (its registers
+# hold all C output channels of 64 pixels a warp); f32 takes any multiple
+# of 8 (16-byte accesses, 8 channels at a time)
 BF16_WIDTHS = (16, 32, 48, 64)
+
+
+def takes(c: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes chains of width ``c`` in ``dtype``. The
+    wrapper refuses every other width with this same rule, and
+    ``StageModule.pack`` leaves such a chain to the plain modules."""
+    if dtype == torch.bfloat16:
+        return c in BF16_WIDTHS
+    return dtype == torch.float32 and c > 0 and c % 8 == 0
 
 
 def pack_chain_weights(convs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -81,15 +91,11 @@ def basic_chain(x: torch.Tensor, w: torch.Tensor,
                          f'{w.dtype}, {b.dtype}')
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError('basic_chain kernel wants contiguous NHWC x, w, b')
-    if c % 8:  # 16-byte accesses, 8 channels at a time
-        raise ValueError(f'basic_chain kernel wants C a multiple of 8 (every '
-                         f'HRNet branch width is), got {c}')
-    if x.dtype == torch.bfloat16 and c not in BF16_WIDTHS:
-        # the tensor-core path is compiled for these widths (its registers
-        # hold all C output channels of 64 pixels a warp)
-        raise ValueError(f'basic_chain bf16 kernel takes C in {BF16_WIDTHS} '
-                         f'(HRNet-W32 and W48 branch 0 are 32 and 48), got '
-                         f'{c}')
+    if not takes(c, x.dtype):
+        raise ValueError(f'basic_chain kernel takes C in {BF16_WIDTHS} in '
+                         f'bf16 and C a multiple of 8 in f32 (HRNet-W32 and '
+                         f'W48 branch 0 are 32 and 48); got C = {c} in '
+                         f'{x.dtype}')
     if w.data_ptr() % 16:
         raise ValueError('basic_chain kernel wants 16-byte aligned weights')
     if x.data_ptr() % 16:  # the kernel's 16-byte vector loads

@@ -59,6 +59,13 @@ def pack_chain_weights_int8(convs: Sequence[Tuple[torch.Tensor,
                                     dtype=torch.float32, device=dev)}
 
 
+def takes(c: int) -> bool:
+    """Whether the kernel takes chains of width ``c``. The wrapper refuses
+    every other width with this same rule, and ``StageModule.pack`` keeps
+    such a chain off the int8 kernel."""
+    return c > 0 and c % 8 == 0
+
+
 def int8_chain_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                      b: torch.Tensor, ascales: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch. x (B, H, W, C) NHWC in the
@@ -114,7 +121,7 @@ def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                          f'{wscale.dtype}, {b.dtype}, {ascales.dtype}')
     if not (x.is_contiguous() and all(t.is_contiguous() for t in operands)):
         raise ValueError('int8_chain kernel wants contiguous tensors')
-    if c % 8:  # 8-channel vector accesses
+    if not takes(c):  # 8-channel vector accesses
         raise ValueError(f'int8_chain kernel wants C a multiple of 8, got {c}')
     if x.data_ptr() % 16:  # the kernel's 16-byte vector loads
         x = x.clone()

@@ -38,6 +38,16 @@ _G = np.array([[1.0, 0.0, 0.0],
                [0.5, 0.5, 0.5],
                [0.5, -0.5, 0.5],
                [0.0, 0.0, 1.0]], np.float32)
+# the widths the kernel is compiled for: those where the JAX package runs
+# its Winograd chain (G * c == 128 with G = min(4, max(2, 128 // c)))
+WINO_WIDTHS = (32, 64)
+
+
+def takes(c: int) -> bool:
+    """Whether the kernel takes chains of width ``c`` (in bf16, with H
+    even). The wrapper refuses every other width with this same rule, and
+    ``StageModule.pack`` packs Winograd weights only where it holds."""
+    return c in WINO_WIDTHS
 
 
 def pack_winograd_weights(w: torch.Tensor, dtype: torch.dtype
@@ -93,7 +103,8 @@ def wino_chain_plain(x: torch.Tensor, ww: torch.Tensor,
 def wino_chain(x: torch.Tensor, ww: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """4 BasicBlocks on x (B, H, W, C) NHWC, Winograd-H: the CUDA kernel
-    for CUDA tensors (bf16), the plain version for CPU tensors."""
+    for CUDA tensors (bf16, C in ``WINO_WIDTHS``, any W and even H), the
+    plain version for CPU tensors."""
     if x.ndim != 4:
         raise ValueError(f'wino_chain wants x (B, H, W, C), got '
                          f'{tuple(x.shape)}')
@@ -115,8 +126,11 @@ def wino_chain(x: torch.Tensor, ww: torch.Tensor,
                          f'got {x.dtype}, {ww.dtype}, {b.dtype}')
     if not (x.is_contiguous() and ww.is_contiguous() and b.is_contiguous()):
         raise ValueError('wino_chain kernel wants contiguous x, ww, b')
-    if c % 8:  # 16-byte accesses, 8 channels at a time
-        raise ValueError(f'wino_chain kernel wants C a multiple of 8, got {c}')
+    if not takes(c):
+        # a template per width: the accumulators of a pass and the staged
+        # U are sized by C
+        raise ValueError(f'wino_chain kernel takes C in {WINO_WIDTHS} (HRNet-'
+                         f'W32 branch 0 is 32), got {c}')
     if ww.data_ptr() % 16:
         raise ValueError('wino_chain kernel wants 16-byte aligned weights')
     if x.data_ptr() % 16:  # the kernel's 16-byte vector loads

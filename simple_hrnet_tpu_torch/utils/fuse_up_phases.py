@@ -1,23 +1,27 @@
-"""Where K3's and K2's time goes: the kernels with phases left out.
+"""Where K3's, K2's and B3's time goes: the kernels with phases left out.
 
-Builds copies of ``csrc/fuse_up.cu`` (K3, the high-res fuse) and
-``csrc/fused_block.cu`` (K2, the branch-0 chain) with some of the three
-phases of their tile loops removed — the ring's copies ('loads'), the
+Builds copies of ``csrc/fuse_up.cu`` (K3, the high-res fuse),
+``csrc/fused_block.cu`` (K2, the branch-0 chain) and
+``csrc/winograd_chain.cu`` (B3, the Winograd-H chain) with some of the
+three phases of their tile loops removed — the ring's copies ('loads'), the
 tensor-core products ('products') and the epilogue with its stores
 ('epilogue') — and times each copy beside the whole kernel the way
 ``chip_smoke.py`` times them: replayed from a CUDA graph over input sets
 larger than twice the L2. K3 runs at the shapes ``chip_smoke.py`` times
 (HRNet-W48 stage 2-4 and HRNet-W32 stage 4, bf16, 32 crops), K2 in bf16 at
-the W48 branch-0 shape with 32 and 2 crops. A copy without some phase
-computes garbage; only its time means something. Needs a card and
+the W48 branch-0 shape with 32 and 2 crops, B3 in bf16 at the W32 branch-0
+shape with 32 and 2 crops (beside K2 at that shape). A copy without some
+phase computes garbage; only its time means something. Needs a card and
 ``nvcc``; run from the repository root:
 
     python3 -m simple_hrnet_tpu_torch.utils.fuse_up_phases [--kernel K]
         [--chain-baseline OTHER/fused_block.cu ...]
+        [--wino-baseline OTHER/winograd_chain.cu ...]
 
-``--chain-baseline`` (repeatable) also builds other versions of
-``fused_block.cu`` (for example the parent commit's) and times each whole
-beside K2's variants, so versions are compared in one run on one card.
+``--chain-baseline`` and ``--wino-baseline`` (repeatable) also build other
+versions of ``fused_block.cu`` or ``winograd_chain.cu`` (for example the
+parent commit's) and time each whole beside the kernel's variants, so
+versions are compared in one run on one card.
 
 Prints one line per variant (ms at each shape), a streaming yardstick (a
 ``copy_`` of the W48 base, to read the card's practical bytes/s) and the
@@ -38,6 +42,7 @@ import torch
 from simple_hrnet_tpu_torch.ops.cuda import build
 from simple_hrnet_tpu_torch.ops.cuda import fuse_up as K3
 from simple_hrnet_tpu_torch.ops.cuda import fused_block as K2
+from simple_hrnet_tpu_torch.ops.cuda import winograd_chain as KW
 
 # variant -> the phases it keeps
 VARIANTS = {
@@ -62,6 +67,8 @@ PHASE_CALLS = {
         'epilogue': r'epilogue<C>\([^;]*;',
     },
 }
+# B3's tile loop spells its phase calls as K2's does
+PHASE_CALLS['winograd_chain'] = PHASE_CALLS['fused_block']
 # what takes a removed call's place: K2's products leave their results in
 # registers, so without the epilogue a sum of them is stored where no run
 # looks (a negative zero sum), or the compiler would drop the products too
@@ -71,6 +78,13 @@ REMOVED = {
         '(int)(sizeof(acc) / sizeof(float)); ++i_) s_ += (&acc[0][0][0])[i_];'
         ' if (__float_as_uint(s_) == 0x80000000u) a.out[0] = '
         '__float2bfloat16_rn(s_); }',
+    # B3's products start its sums; without them the epilogue gets zeros
+    ('winograd_chain', 'products'): 'zero(ye); zero(yo);',
+    ('winograd_chain', 'epilogue'):
+        '{ float s_ = 0.f; _Pragma("unroll") for (int i_ = 0; i_ < '
+        '(int)(sizeof(ye) / sizeof(float)); ++i_) s_ += (&ye[0][0][0])[i_] + '
+        '(&yo[0][0][0])[i_]; if (__float_as_uint(s_) == 0x80000000u) '
+        'a.out[0] = __float2bfloat16_rn(s_); }',
 }
 
 
@@ -127,13 +141,11 @@ def fuse_up_phases(cs, dev):
           '(32, 64, 48, 32) + 3 sources, bf16:')
     for label, lib in libs.items():
         build._LIBS['fuse_up'] = lib
-        K3.smem_bytes.cache_clear()
         row = [cs.graph_ms([lambda a=a: K3.fuse_up(*a) for a in sets])
                for sets in inputs]
         print(f'  {label:>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
               flush=True)
     build._LIBS.pop('fuse_up')
-    K3.smem_bytes.cache_clear()
     base = [a[0] for a in inputs[2]]
     outs = [torch.empty_like(b) for b in base]
     ms = cs.graph_ms([lambda b=b, o=o: o.copy_(b)
@@ -143,11 +155,14 @@ def fuse_up_phases(cs, dev):
           f'{ms:.4f} ms, {moved / ms / 1e9:.3f} TB/s')
 
 
+def _labelled(paths):
+    return {os.path.basename(os.path.dirname(os.path.abspath(p))) + '/' +
+            os.path.basename(p): p for p in paths}
+
+
 def chain_phases(cs, dev, baselines=()):
-    extra = {os.path.basename(os.path.dirname(os.path.abspath(p))) + '/' +
-             os.path.basename(p): p for p in baselines}
     libs = build_variants('fused_block', os.path.join(
-        build.BUILD_DIR, 'fused_block_phases'), extra)
+        build.BUILD_DIR, 'fused_block_phases'), _labelled(baselines))
     inputs = []
     for bsz in (32, 2):
         args = cs._chain_inputs(dev, torch.bfloat16, bsz)
@@ -165,24 +180,54 @@ def chain_phases(cs, dev, baselines=()):
     build._LIBS.pop('fused_block')
 
 
+def wino_phases(cs, dev, baselines=()):
+    libs = build_variants('winograd_chain', os.path.join(
+        build.BUILD_DIR, 'winograd_chain_phases'), _labelled(baselines))
+    inputs, k2 = [], []
+    for bsz in (32, 2):
+        x, ww, b, wl = cs._wino_inputs(dev, bsz)
+        per_call = 2 * cs.nbytes(x) + cs.nbytes(ww, b)
+        sets = cs.input_sets(x, per_call, torch.clone)
+        inputs.append([(v, ww, b) for v in sets])
+        k2.append([(v, wl, b) for v in sets])
+    print('B3 wino_chain, ms at (32, 64, 48, 32) and (2, 64, 48, 32), '
+          'bf16:')
+    for label, lib in libs.items():
+        build._LIBS['winograd_chain'] = lib
+        row = [cs.graph_ms([lambda a=a: KW.wino_chain(*a) for a in sets])
+               for sets in inputs]
+        print(f'  {label:>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
+              flush=True)
+    build._LIBS.pop('winograd_chain')
+    row = [cs.graph_ms([lambda a=a: K2.basic_chain(*a) for a in sets])
+           for sets in k2]
+    print(f'  {"K2 same shape":>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
+          flush=True)
+
+
 def main():
     import chip_smoke as cs  # the repository root's: shapes, inputs, timing
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--kernel', choices=('fuse_up', 'basic_chain', 'both'),
-                    default='both')
+    ap.add_argument('--kernel', choices=('fuse_up', 'basic_chain', 'wino',
+                                         'all'), default='all')
     ap.add_argument('--chain-baseline', metavar='FUSED_BLOCK_CU',
                     action='append', default=[],
                     help='another fused_block.cu to time whole beside K2')
+    ap.add_argument('--wino-baseline', metavar='WINOGRAD_CHAIN_CU',
+                    action='append', default=[],
+                    help='another winograd_chain.cu to time whole beside B3')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('fuse_up_phases: no CUDA device visible', file=sys.stderr)
         return 1
     dev = torch.device('cuda', 0)
-    if args.kernel in ('fuse_up', 'both'):
+    if args.kernel in ('fuse_up', 'all'):
         fuse_up_phases(cs, dev)
-    if args.kernel in ('basic_chain', 'both'):
+    if args.kernel in ('basic_chain', 'all'):
         chain_phases(cs, dev, args.chain_baseline)
+    if args.kernel in ('wino', 'all'):
+        wino_phases(cs, dev, args.wino_baseline)
     print(cs.card_line())
     return 0
 

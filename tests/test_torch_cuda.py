@@ -9,15 +9,20 @@ JAX nor the JAX package, so it runs on a GPU host without JAX:
 for slot; the chain and the fuse (at a ragged 24 x 16 base; the W48 and
 W32 stage shapes are in tests/test_torch_cuda_fuse.py) 1e-4 of max in
 f32 with TF32 off (summation order only), 2^-6 of max in bf16
-(chip_smoke.py's limit), the same for the Winograd chain; the int8 chain
-and the int8 conv bit for bit (exact int32 cores and the same IEEE f32
-epilogue as their plain versions).
+(chip_smoke.py's limit); the int8 chain and the int8 conv bit for bit
+(exact int32 cores and the same IEEE f32 epilogue as their plain
+versions). The Winograd chain's card tests are in
+tests/test_torch_cuda_wino.py. HRNet at widths the chain kernels do not
+take runs its plain modules there: 1e-4 of max in f32 (the same modules),
+2^-5 of max in bf16 (the fuse kernel rounds once where the plain fusion
+rounds at every conv and add, over ~90 layers).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from simple_hrnet_tpu_torch.models import hrnet as TH
 from simple_hrnet_tpu_torch.ops import int8 as T8
 from simple_hrnet_tpu_torch.ops.cuda import fuse_up as TF
 from simple_hrnet_tpu_torch.ops.cuda import fused_block as TB
@@ -94,22 +99,6 @@ def test_chain_kernel_rejects_width_not_multiple_of_8(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('c', [16, 32])
-def test_wino_chain_kernel_matches_plain(dev, c):
-    g = torch.Generator(device=dev).manual_seed(32)
-    x = torch.randn(3, 24, 20, c, device=dev, generator=g).bfloat16()
-    w = torch.rand(8, 3, 3, c, c, device=dev, generator=g) * 0.2 - 0.1
-    b = torch.rand(8, c, device=dev, generator=g) * 2 - 1
-    ww = TW.pack_winograd_weights(w, torch.bfloat16)
-    launches = TW.wino_chain.launches
-    out = TW.wino_chain(x, ww, b).float()
-    assert TW.wino_chain.launches == launches + 1
-    ref = TW.wino_chain_plain(x, ww, b).float()
-    assert (out - ref).abs().max() <= 2.0 ** -6 * max(1.0, ref.abs().max())
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize('c', [16, 48])
 def test_int8_chain_kernel_matches_plain(dev, c):
     g = torch.Generator(device=dev).manual_seed(33)
@@ -142,3 +131,46 @@ def test_int8_conv_cuda_route_matches_cpu_integer_path(dev):
         gpu = T8.int8_conv2d(x.to(dev), wq.to(dev), 3, ws.to(dev), a.to(dev),
                              bias.to(dev), stride, 1)
         assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_fuse_smem_rule_matches_the_kernel(dev):
+    """fuse_up.takes decides on the host's copy of the kernel's shared-
+    memory layout; it must give the kernel's own numbers."""
+    for c in (8, 16, 32, 48, 64):
+        for n in (1, 2, 3):
+            widths = tuple(c * 2 ** j for j in range(1, n + 1))
+            factors = tuple(2 ** j for j in range(1, n + 1))
+            for dtype in (torch.float32, torch.bfloat16):
+                assert TF.smem_bytes(c, widths, factors, dtype) == \
+                    TF.lib_smem_bytes(c, widths, factors, dtype)
+
+
+@pytest.mark.cuda
+def test_hrnet_widths_without_chain_kernels_run_on_cuda(dev):
+    """HRNet(4) in f32 (no kernel takes C = 4: no chain, no fuse packed)
+    and HRNet(8) in bf16 (K2's bf16 path does not take C = 8: no chain;
+    the fuse runs on K3) forward on CUDA tensors and match the plain
+    modules."""
+    chains = (TB.basic_chain, TW.wino_chain, TI8.int8_chain)
+    for c, dtype, tol in ((4, torch.float32, 1e-4),
+                          (8, torch.bfloat16, 2.0 ** -5)):
+        x = torch.randn(2, 64, 64, 3, generator=torch.Generator()
+                        .manual_seed(36)).to(dev)
+        outs = []
+        for kernels in (True, False):
+            model = TH.prepare_inference(TH.init(c, 17, seed=0).to(dev),
+                                         dtype, kernels=kernels)
+            assert all(m.chain is None and m.chain_int8 is None
+                       for m in model.stage_modules())
+            chain0 = [k.launches for k in chains]
+            fuse0 = TF.fuse_up.launches
+            with torch.no_grad():
+                outs.append(model(x).float())
+            assert [k.launches for k in chains] == chain0
+            assert TF.fuse_up.launches - fuse0 == (8 if kernels and c == 8
+                                                   else 0)
+        torch.cuda.synchronize()
+        out, ref = outs
+        assert out.shape == (2, 16, 16, 17) and torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= tol * max(1.0, ref.abs().max())
