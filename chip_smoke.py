@@ -11,8 +11,8 @@ Phases (any failure exits nonzero):
      main paths' shapes (every batch phase 4 gives the pose model): NMS,
      the basic chain at W48 in bf16 and f32 (TF32 off), the fuse at W48 in
      bf16 and f32 and at W32 in bf16, the Winograd chain at W32 in bf16,
-     the int8 chain at W32 and W48; show that wrong-input controls fall
-     outside each tolerance; time the kernel, the plain version and one
+     the int8 chain exactly at W32 and W48 in both cast-point modes; show
+     that wrong-input controls fall outside each tolerance; time the kernel, the plain version and one
      library call (the kernels and the library calls replayed from CUDA
      graphs over input sets larger than twice the L2: the basic chain at
      W48 batches 32 and 2, the fuse at W48 with 1-3 sources and at W32
@@ -31,7 +31,9 @@ Phases (any failure exits nonzero):
      just before and read just after, and checks that detections reached
      the pose path, that its kernels ran there (8 chain launches per pose
      forward), and that the pose model ran only at batches phase 2
-     checked; it is timed, and its 8-frame call is profiled.
+     checked; it is timed, and its 8-frame call is profiled (device time
+     by kernel, and each port kernel's device time and launches summed
+     over all its instantiations).
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -44,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -66,10 +69,11 @@ L2_BYTES = 50_000_000
 # that check_chain and check_fuse_up hold against it.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # the int8 chain repeats its plain version's arithmetic exactly (exact int32
-# cores, the same IEEE f32 epilogue, rounding half to even), so its limit is
-# one bf16 step of max; its controls (one activation scale off by 1/127,
-# biases off by one channel) sit above it
-TOL_INT8 = 2.0 ** -8
+# cores, the same IEEE f32 epilogue, rounding half to even), so it must
+# equal it bit for bit; its wrong-input controls (one activation scale off
+# by 1/127, biases off by one channel) must differ by more than one bf16
+# step of max, and the other cast-point mode's result must differ at all
+TOL_INT8_CONTROL = 2.0 ** -8
 
 # the batches phase 4's predict calls give the pose model (max_batch_size
 # 32, 32 people a frame from the random detector): 2 and 32 for one frame,
@@ -551,28 +555,28 @@ def _int8_inputs(dev, bsz, h, w, c):
 
 def check_int8_chain(dev, rec):
     """B4 at the W32 branch-0 shape (B, 64, 48, 32) at every W32 batch and
-    at the W48 shape (B, 96, 72, 48) at the W48 batches; bf16 in and out."""
+    at the W48 shape (B, 96, 72, 48) at the W48 batches, bf16 in and out,
+    exactly, in both cast-point modes: the Pallas kernel's (HRNet's at
+    W32) and the XLA chain's (HRNet's at W48); timed at W32 batch 32."""
     from simple_hrnet_tpu_torch.ops import int8 as Q8
     from simple_hrnet_tpu_torch.ops.cuda import int8_chain as K
 
-    errs = {}
     shapes = [(bsz, 64, 48, 32) for bsz in POSE_BATCHES_W32] + \
         [(bsz, 96, 72, 48) for bsz in POSE_BATCHES]
     for shape in shapes:
         x, q, _ = _int8_inputs(dev, *shape)
         args = (q['wq'], q['wscale'], q['b'], q['ascales'])
-        y = K.int8_chain(x, *args)
-        ref = K.int8_chain_plain(x, *args)
-        torch.cuda.synchronize()
-        err, rel = rel_err(y, ref)
-        if rel > TOL_INT8:
-            raise AssertionError(f'int8_chain {shape}: max err {err} ({rel} '
-                                 f'of max) > {TOL_INT8}')
-        errs[shape] = (err, rel)
-    worst = max(errs.values())
-    print(f'B4 int8_chain W32 B={POSE_BATCHES_W32}, W48 B={POSE_BATCHES}: '
-          f'max abs err {worst[0]:.3e} (rel {worst[1]:.3e}, tol '
-          f'{TOL_INT8:.1e})', flush=True)
+        for mode in (False, True):
+            y = K.int8_chain(x, *args, round_handoffs=mode)
+            ref = K.int8_chain_plain(x, *args, round_handoffs=mode)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ref):
+                err, rel = rel_err(y, ref)
+                raise AssertionError(
+                    f'int8_chain {shape} round_handoffs={mode}: not equal '
+                    f'to its plain version (max err {err}, {rel} of max)')
+    print(f'B4 int8_chain W32 B={POSE_BATCHES_W32}, W48 B={POSE_BATCHES}, '
+          f'both cast-point modes: equal to the plain version', flush=True)
     x, q, wt = _int8_inputs(dev, max(POSE_BATCHES_W32), 64, 48, 32)
     args = (q['wq'], q['wscale'], q['b'], q['ascales'])
     ref = K.int8_chain_plain(x, *args)
@@ -583,7 +587,11 @@ def check_int8_chain(dev, rec):
             x, q['wq'], q['wscale'], q['b'], off),
         'biases off by one channel': K.int8_chain_plain(
             x, q['wq'], q['wscale'], q['b'].roll(1, dims=1), q['ascales'])},
-        TOL_INT8)
+        TOL_INT8_CONTROL)
+    # the exact checks can tell the two modes apart at this shape
+    mode_control = check_controls('B4 cast points', ref, {
+        'the XLA chain\'s cast points': K.int8_chain_plain(
+            x, *args, round_handoffs=True)}, 0.0)
     # library yardstick: 8 torch._int_mm convs over the int8 patch matrix
     # with the same quantize / dequantize / bias / residual / ReLU epilogue
     inva = torch.reciprocal(q['ascales'])
@@ -605,6 +613,9 @@ def check_int8_chain(dev, rec):
     per_call = 2 * nbytes(x) + nbytes(*args)
     sets = input_sets(x, per_call, torch.clone)
     ms = graph_ms([lambda v=v: K.int8_chain(v, *args) for v in sets])
+    ms_round = graph_ms([lambda v=v: K.int8_chain(v, *args,
+                                                  round_handoffs=True)
+                         for v in sets])
     plain_ms = cuda_ms(lambda: K.int8_chain_plain(x, *args), iters=5)
     lib_ms = graph_ms([lambda v=v: lib(v) for v in sets])
     bsz, h, w, c = x.shape
@@ -614,13 +625,17 @@ def check_int8_chain(dev, rec):
         name='int8_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/int8_chain.cu',
         replaces='simple_hrnet_tpu/ops/pallas/fused_block.py:329',
-        max_abs_err=worst[0], max_rel_err=worst[1], tolerance=TOL_INT8,
-        control_rel=control, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, shape=f'{tuple(x.shape)} bf16',
+        max_abs_err=0.0, tolerance='exact', control_rel=control,
+        mode_control_rel=mode_control, ms=ms, ms_round_handoffs=ms_round,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f'{tuple(x.shape)} bf16', share_of_bound=b_ms / ms,
         input_sets=len(sets), checked_batches=list(POSE_BATCHES_W32),
-        checked_batches_w48=list(POSE_BATCHES))
-    print(f'B4 int8_chain B={bsz}: {ms:.4f} ms (plain {plain_ms:.4f}, '
-          f'_int_mm {lib_ms:.4f}, bound {b_ms:.5f} {b_by})', flush=True)
+        checked_batches_w48=list(POSE_BATCHES),
+        checked_modes=['pallas', 'round_handoffs'])
+    print(f'B4 int8_chain {rec["int8_chain"]["shape"]}: {ms:.4f} ms (round '
+          f'handoffs {ms_round:.4f}, plain {plain_ms:.4f}, _int_mm '
+          f'{lib_ms:.4f}, bound {b_ms:.5f} {b_by}, '
+          f'{100 * b_ms / ms:.1f}% of bound)', flush=True)
 
 
 def check_qconv(dev):
@@ -811,17 +826,30 @@ def run_main_path(dev, path, pth, weights, counters):
         'detector_quantized': model.detector.quantized,
         'build_s': build_s, 'predict_ms_single': t['single'] * 1e3,
         'predict_ms_stack8': t['stack8'] * 1e3}
-    busy_ms, top = profile_predict(name, model, frames)
-    summary.update(stack8_device_busy_ms=busy_ms, stack8_top_device_ms=top)
+    busy_ms, top, port = profile_predict(name, model, frames)
+    summary.update(stack8_device_busy_ms=busy_ms, stack8_top_device_ms=top,
+                   stack8_port_kernels=port)
     del model
     torch.cuda.empty_cache()
     return launches, single, stack, summary
 
 
+# each port kernel's device functions (profiler names), summed over all
+# their instantiations
+PORT_KERNELS = {
+    'K1 nms': ('nms_kernel',),
+    'K2 basic_chain': ('conv3x3_bf16_tc', 'conv3x3_f32'),
+    'B3 wino_chain': ('wino_conv_bf16',),
+    'B4 int8_chain': ('int8_conv_tc', 'int8_quantize'),
+    'K3 fuse_up': ('fuse_up_kernel',),
+}
+
+
 def profile_predict(name, model, frames):
     """Device time by kernel over one ``predict`` of the 8-frame stack
-    (torch.profiler, CUDA activity). Returns the summed device time and
-    the ten largest entries."""
+    (torch.profiler, CUDA activity). Returns the summed device time, the
+    ten largest entries and each port kernel's [ms, launches] summed over
+    all its instantiations."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -844,7 +872,18 @@ def profile_predict(name, model, frames):
           f'{busy:.2f} ms; by kernel (ms, calls, name):', flush=True)
     for ms, n, key in rows[:15]:
         print(f'    {ms:9.3f} {n:6d}  {key[:110]}')
-    return busy, [[round(ms, 4), n, key[:80]] for ms, n, key in rows[:10]]
+    port = {}
+    for kernel, funcs in PORT_KERNELS.items():
+        hit = [(ms, n) for ms, n, key in rows
+               if any(re.search(rf'\b{f}\b', key) for f in funcs)]
+        if hit:
+            port[kernel] = [sum(ms for ms, _ in hit), sum(n for _, n in hit)]
+    print(f'phase 4 [{name}]: port kernels, all instantiations (ms, '
+          f'launches): ' + '; '.join(f'{k} {ms:.3f} ms, {n}'
+                                     for k, (ms, n) in port.items()),
+          flush=True)
+    return busy, [[round(ms, 4), n, key[:80]] for ms, n, key in rows[:10]], \
+        port
 
 
 def card_line():

@@ -10,7 +10,10 @@ every stage module runs hand-written CUDA kernels on CUDA tensors, where
 the kernel takes the module's widths (each kernel's ``takes``):
   * branch 0's chain of 4 BasicBlocks through one of
       - ``int8_chain`` (B4) under int8, when its 8 convs are calibrated and
-        the quantize policy accepts them;
+        the quantize policy accepts them, with the cast points of the
+        formulation the JAX package runs at that width: its Pallas
+        kernel's where ``G * c == 128`` and branch-0 W is a multiple of 8,
+        its XLA chain's elsewhere (W48 among them);
       - ``wino_chain`` (B3) in bf16 where the JAX package runs its
         Winograd-H chain: ``G * c == 128`` with ``G = min(4, max(2, 128 //
         c))`` (W32 and W64), branch-0 H even and W a multiple of 8;
@@ -97,9 +100,12 @@ class StageModule(nn.Module):
                     row.append(nn.Sequential(*steps))
             self.fuse_layers.append(row)
         # kernel operands, set by pack() on folded weights: the chain's
-        # (basic_chain operands, wino_chain weights or None) or int8_chain's
+        # (basic_chain operands, wino_chain weights or None) or int8_chain's;
+        # int8_pallas_casts: whether the JAX package's Pallas int8 kernel,
+        # and so its cast points, may run at this width
         self.chain: Optional[tuple] = None
         self.chain_int8: Optional[dict] = None
+        self.int8_pallas_casts = False
         self.fuse: Optional[tuple] = None
 
     def pack(self, dtype: torch.dtype,
@@ -126,6 +132,10 @@ class StageModule(nn.Module):
                  for i in range(8)]
         pairs = [(conv.weight, conv.bias) for conv in convs]
         self.chain = self.chain_int8 = self.fuse = None
+        # the JAX package's image group G, whose G * c packed lanes decide
+        # which chain formulation it runs (api.py:293-295)
+        lanes_exact = min(4, max(2, 128 // c)) * c == 128
+        self.int8_pallas_casts = lanes_exact
         if amax is not None and int8_chain_takes(c) and all(
                 amax.get(p, 0.0) > 0.0 and
                 Q.default_policy(Q.conv_shape(conv))
@@ -140,9 +150,8 @@ class StageModule(nn.Module):
             # rounds differently from the direct conv, so the port follows
             # the same rule to reproduce those numbers (every width B3
             # takes, K2 takes too: it runs where B3's shape rule fails)
-            group = min(4, max(2, 128 // c))
             ww = (pack_winograd_weights(w, dtype)
-                  if dtype == torch.bfloat16 and group * c == 128
+                  if dtype == torch.bfloat16 and lanes_exact
                   and wino_chain_takes(c) else None)
             self.chain = (w.to(dtype), b, ww)
         if self.n_branches > 1:
@@ -161,12 +170,18 @@ class StageModule(nn.Module):
 
     def _run_chain(self, x: torch.Tensor) -> torch.Tensor:
         """Branch 0 through its chain kernel (x NCHW, NHWC in memory)."""
-        if self.chain_int8 is not None:
-            q = self.chain_int8
-            return _nchw(int8_chain(_nhwc(x), q['wq'], q['wscale'], q['b'],
-                                    q['ascales']))
-        w, b, ww = self.chain
         h, wd = x.shape[2], x.shape[3]
+        if self.chain_int8 is not None:
+            # the JAX package runs its Pallas int8 kernel, with its f32
+            # handoffs, only at 128 lanes and W % 8 == 0
+            # (chain_pallas_int8_ok, fused_block.py:300-313), and the XLA
+            # chain, which rounds both handoffs to bf16, elsewhere
+            # (hrnet_fast.py:196-206)
+            q = self.chain_int8
+            return _nchw(int8_chain(
+                _nhwc(x), q['wq'], q['wscale'], q['b'], q['ascales'],
+                round_handoffs=not (self.int8_pallas_casts and wd % 8 == 0)))
+        w, b, ww = self.chain
         if ww is not None and h % 2 == 0 and wd % 8 == 0:
             # wino_pallas_ok's shape rule (winograd_chain.py:128-135)
             return _nchw(wino_chain(_nhwc(x), ww, b))

@@ -1,24 +1,32 @@
 """B4: HRNet's branch-0 chain of 4 BasicBlocks in int8 — CUDA kernel and
 plain version.
 
-Counterpart of ``simple_hrnet_tpu/ops/pallas/fused_block.py``'s
-``_chain_kernel_int8`` (behind ``chain_pallas_int8_grouped``), computing
-its UNPACKED function (G = 1). The kernel is ``csrc/int8_chain.cu``; its
-note gives the bound on the H100 and the design.
+Counterpart of ``simple_hrnet_tpu/ops/pallas/fused_block.py``'s two int8
+chains, computing their UNPACKED function (G = 1): the Pallas
+``_chain_kernel_int8`` (behind ``chain_pallas_int8_grouped``) and the XLA
+``blockdiag_chain_int8_grouped``. The kernel is ``csrc/int8_chain.cu``;
+its note gives the bound on the H100 and the design.
 
 Each conv takes a static per-tensor input scale ``ascales[i]`` and
-per-output-channel weight scales ``wscale[i]``, and the cast points are the
-Pallas kernel's (not those of the XLA ``blockdiag_chain_int8_grouped``):
+per-output-channel weight scales ``wscale[i]``. In both formulations:
   * ``inva = 1 / ascale`` and ``alpha = ascale * wscale``, both in f32;
   * the first conv's input is quantized from the block input ``x``:
     ``clip(round(x * inva), -127, 127)`` (round half to even);
   * int8 x int8 -> exact int32 accumulators, then ``acc * alpha + bias``
     in f32;
-  * a conv1 output (after ReLU) is requantized FROM f32 for conv2, never
-    rounded to the activation type first;
   * a conv2 output adds the block input as its f32 residual, takes the
-    ReLU, is requantized from f32 for the next block and is stored in the
-    activation type.
+    ReLU and is stored in the activation type.
+They differ in the two handoffs of every block, the conv1 output (after
+its ReLU) that conv2 quantizes and the block output that the next block's
+conv1 quantizes:
+  * ``round_handoffs=False``, the Pallas kernel's cast points: both are
+    requantized FROM f32, never rounded to the activation type first;
+  * ``round_handoffs=True``, the XLA chain's: both are rounded to the
+    activation type, and the requantization is taken from that value.
+The JAX package runs the Pallas kernel only where ``G * c == 128`` and
+branch-0 W % 8 == 0 (``chain_pallas_int8_ok``), the XLA chain elsewhere;
+``models/hrnet.py`` picks the mode by the same rule. In f32 the two modes
+give the same numbers.
 """
 
 from __future__ import annotations
@@ -59,18 +67,26 @@ def pack_chain_weights_int8(convs: Sequence[Tuple[torch.Tensor,
                                     dtype=torch.float32, device=dev)}
 
 
+# the widest chain the kernel is compiled for: the JAX package's int8
+# policy takes 3x3 convs up to 128 channels
+MAX_WIDTH = 128
+
+
 def takes(c: int) -> bool:
-    """Whether the kernel takes chains of width ``c``. The wrapper refuses
-    every other width with this same rule, and ``StageModule.pack`` keeps
-    such a chain off the int8 kernel."""
-    return c > 0 and c % 8 == 0
+    """Whether the kernel takes chains of width ``c``: every multiple of 8
+    up to ``MAX_WIDTH``. The wrapper refuses every other width with this
+    same rule, and ``StageModule.pack`` keeps such a chain off the int8
+    kernel."""
+    return 0 < c <= MAX_WIDTH and c % 8 == 0
 
 
 def int8_chain_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-                     b: torch.Tensor, ascales: torch.Tensor) -> torch.Tensor:
+                     b: torch.Tensor, ascales: torch.Tensor,
+                     round_handoffs: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch. x (B, H, W, C) NHWC in the
     activation type; the int8 cores are f64 convs of the integer operands
-    (exact: every partial sum is an integer below 2^53)."""
+    (exact: every partial sum is an integer below 2^53).
+    ``round_handoffs`` picks the cast points (module docstring)."""
     dt = x.dtype
     inva = torch.reciprocal(ascales.float())
     alpha = ascales.float()[:, None] * wscale.float()
@@ -85,18 +101,22 @@ def int8_chain_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     q = quantize(v, inva[0])
     for blk in range(4):
         mid = torch.relu(qconv(q, 2 * blk))
+        if round_handoffs:
+            mid = mid.to(dt)
         y = torch.relu(qconv(quantize(mid, inva[2 * blk + 1]), 2 * blk + 1)
                        + v.float())
-        if blk < 3:
-            q = quantize(y, inva[2 * blk + 2])
         v = y.to(dt)
+        if blk < 3:
+            q = quantize(v if round_handoffs else y, inva[2 * blk + 2])
     return v.permute(0, 2, 3, 1).contiguous()
 
 
 def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-               b: torch.Tensor, ascales: torch.Tensor) -> torch.Tensor:
+               b: torch.Tensor, ascales: torch.Tensor,
+               round_handoffs: bool = False) -> torch.Tensor:
     """4 int8 BasicBlocks on x (B, H, W, C) NHWC: the CUDA kernel for CUDA
-    tensors (bf16 in and out), the plain version for CPU tensors."""
+    tensors (bf16 in and out), the plain version for CPU tensors.
+    ``round_handoffs`` picks the cast points (module docstring)."""
     if x.ndim != 4:
         raise ValueError(f'int8_chain wants x (B, H, W, C), got '
                          f'{tuple(x.shape)}')
@@ -108,7 +128,7 @@ def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                          f'ascales {tuple(ascales.shape)} do not match C = '
                          f'{c}')
     if x.device.type == 'cpu':
-        return int8_chain_plain(x, wq, wscale, b, ascales)
+        return int8_chain_plain(x, wq, wscale, b, ascales, round_handoffs)
     operands = (wq, wscale, b, ascales)
     if x.device.type != 'cuda' or any(t.device != x.device
                                       for t in operands):
@@ -121,8 +141,9 @@ def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                          f'{wscale.dtype}, {b.dtype}, {ascales.dtype}')
     if not (x.is_contiguous() and all(t.is_contiguous() for t in operands)):
         raise ValueError('int8_chain kernel wants contiguous tensors')
-    if not takes(c):  # 8-channel vector accesses
-        raise ValueError(f'int8_chain kernel wants C a multiple of 8, got {c}')
+    if not takes(c):
+        raise ValueError(f'int8_chain kernel takes C a multiple of 8 up to '
+                         f'{MAX_WIDTH}, got {c}')
     if x.data_ptr() % 16:  # the kernel's 16-byte vector loads
         x = x.clone()
     out = torch.empty_like(x)
@@ -134,7 +155,7 @@ def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     rc = _fn()(build.ptr(x), build.ptr(wq), build.ptr(wscale), build.ptr(b),
                build.ptr(ascales), build.ptr(out), build.ptr(tmp),
                build.ptr(qa), build.ptr(qmid), bsz, h, wd, c,
-               build.stream_ptr(x.device))
+               build.stream_ptr(x.device), int(round_handoffs))
     build.check(rc, 'int8_chain kernel')
     int8_chain.launches += 1
     return out
@@ -147,5 +168,5 @@ def _fn():
     fn = build.library('int8_chain').sht_int8_chain
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
+        [ctypes.c_void_p, ctypes.c_int]
     return fn

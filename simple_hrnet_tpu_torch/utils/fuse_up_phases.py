@@ -1,27 +1,35 @@
-"""Where K3's, K2's and B3's time goes: the kernels with phases left out.
+"""Where K3's, K2's, B3's and B4's time goes: the kernels with phases left
+out.
 
 Builds copies of ``csrc/fuse_up.cu`` (K3, the high-res fuse),
-``csrc/fused_block.cu`` (K2, the branch-0 chain) and
-``csrc/winograd_chain.cu`` (B3, the Winograd-H chain) with some of the
-three phases of their tile loops removed — the ring's copies ('loads'), the
+``csrc/fused_block.cu`` (K2, the branch-0 chain),
+``csrc/winograd_chain.cu`` (B3, the Winograd-H chain) and
+``csrc/int8_chain.cu`` (B4, the int8 chain) with some of the three phases
+of their tile loops removed — the ring's copies ('loads'), the
 tensor-core products ('products') and the epilogue with its stores
 ('epilogue') — and times each copy beside the whole kernel the way
 ``chip_smoke.py`` times them: replayed from a CUDA graph over input sets
 larger than twice the L2. K3 runs at the shapes ``chip_smoke.py`` times
 (HRNet-W48 stage 2-4 and HRNet-W32 stage 4, bf16, 32 crops), K2 in bf16 at
 the W48 branch-0 shape with 32 and 2 crops, B3 in bf16 at the W32 branch-0
-shape with 32 and 2 crops (beside K2 at that shape). A copy without some
+shape with 32 and 2 crops (beside K2 at that shape), B4 at the W32
+branch-0 shape with 32 and 2 crops in the Pallas kernel's cast points
+(HRNet's mode at W32). A copy without some
 phase computes garbage; only its time means something. Needs a card and
 ``nvcc``; run from the repository root:
 
     python3 -m simple_hrnet_tpu_torch.utils.fuse_up_phases [--kernel K]
         [--chain-baseline OTHER/fused_block.cu ...]
         [--wino-baseline OTHER/winograd_chain.cu ...]
+        [--int8-baseline OTHER/int8_chain.cu ...]
 
-``--chain-baseline`` and ``--wino-baseline`` (repeatable) also build other
-versions of ``fused_block.cu`` or ``winograd_chain.cu`` (for example the
-parent commit's) and time each whole beside the kernel's variants, so
-versions are compared in one run on one card.
+``--chain-baseline``, ``--wino-baseline`` and ``--int8-baseline``
+(repeatable) also build other versions of ``fused_block.cu``,
+``winograd_chain.cu`` or ``int8_chain.cu`` (for example the parent
+commit's) and time each whole beside the kernel's variants, so versions
+are compared in one run on one card. An older ``int8_chain.cu`` whose C
+entry lacks the trailing cast-point argument runs its own cast points
+(the wrapper's extra argument is ignored).
 
 Prints one line per variant (ms at each shape), a streaming yardstick (a
 ``copy_`` of the W48 base, to read the card's practical bytes/s) and the
@@ -69,6 +77,11 @@ PHASE_CALLS = {
 }
 # B3's tile loop spells its phase calls as K2's does
 PHASE_CALLS['winograd_chain'] = PHASE_CALLS['fused_block']
+PHASE_CALLS['int8_chain'] = {
+    'loads': r'load_tile<KS, NJ>\(a, ld, ring \+ [^;]*;',
+    'products': r'products<KS, NJ>\([^;]*;',
+    'epilogue': r'epilogue<KS, NJ>\([^;]*;',
+}
 # what takes a removed call's place: K2's products leave their results in
 # registers, so without the epilogue a sum of them is stored where no run
 # looks (a negative zero sum), or the compiler would drop the products too
@@ -85,6 +98,11 @@ REMOVED = {
         '(int)(sizeof(ye) / sizeof(float)); ++i_) s_ += (&ye[0][0][0])[i_] + '
         '(&yo[0][0][0])[i_]; if (__float_as_uint(s_) == 0x80000000u) '
         'a.out[0] = __float2bfloat16_rn(s_); }',
+    ('int8_chain', 'epilogue'):
+        '{ int s_ = 0; _Pragma("unroll") for (int i_ = 0; i_ < '
+        '(int)(sizeof(acc) / sizeof(int)); ++i_) s_ += (&acc[0][0][0])[i_]; '
+        'if (s_ == 0x7fffffff) { if (a.qout != nullptr) a.qout[0] = 1; '
+        'else a.out[0] = __float2bfloat16_rn(1.f); } }',
 }
 
 
@@ -205,18 +223,44 @@ def wino_phases(cs, dev, baselines=()):
           flush=True)
 
 
+def int8_phases(cs, dev, baselines=()):
+    from simple_hrnet_tpu_torch.ops.cuda import int8_chain as K8
+
+    libs = build_variants('int8_chain', os.path.join(
+        build.BUILD_DIR, 'int8_chain_phases'), _labelled(baselines))
+    inputs = []
+    for bsz in (32, 2):
+        x, q, _ = cs._int8_inputs(dev, bsz, 64, 48, 32)
+        args = (q['wq'], q['wscale'], q['b'], q['ascales'])
+        per_call = 2 * cs.nbytes(x) + cs.nbytes(*args)
+        sets = cs.input_sets(x, per_call, torch.clone)
+        inputs.append([(v, *args) for v in sets])
+    print('B4 int8_chain, ms at (32, 64, 48, 32) and (2, 64, 48, 32), '
+          'bf16 in and out:')
+    for label, lib in libs.items():
+        build._LIBS['int8_chain'] = lib
+        row = [cs.graph_ms([lambda a=a: K8.int8_chain(*a) for a in sets])
+               for sets in inputs]
+        print(f'  {label:>14}: ' + '  '.join(f'{ms:.4f}' for ms in row),
+              flush=True)
+    build._LIBS.pop('int8_chain')
+
+
 def main():
     import chip_smoke as cs  # the repository root's: shapes, inputs, timing
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--kernel', choices=('fuse_up', 'basic_chain', 'wino',
-                                         'all'), default='all')
+                                         'int8', 'all'), default='all')
     ap.add_argument('--chain-baseline', metavar='FUSED_BLOCK_CU',
                     action='append', default=[],
                     help='another fused_block.cu to time whole beside K2')
     ap.add_argument('--wino-baseline', metavar='WINOGRAD_CHAIN_CU',
                     action='append', default=[],
                     help='another winograd_chain.cu to time whole beside B3')
+    ap.add_argument('--int8-baseline', metavar='INT8_CHAIN_CU',
+                    action='append', default=[],
+                    help='another int8_chain.cu to time whole beside B4')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('fuse_up_phases: no CUDA device visible', file=sys.stderr)
@@ -228,6 +272,8 @@ def main():
         chain_phases(cs, dev, args.chain_baseline)
     if args.kernel in ('wino', 'all'):
         wino_phases(cs, dev, args.wino_baseline)
+    if args.kernel in ('int8', 'all'):
+        int8_phases(cs, dev, args.int8_baseline)
     print(cs.card_line())
     return 0
 

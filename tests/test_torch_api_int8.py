@@ -7,9 +7,11 @@ conv int8, bf16 elsewhere, f32 head) with per-conv bf16 handoffs. Both
 calibrate themselves on the same synthetic frames. Detections come from a
 fixed-box stub, so the comparison is the pose path's.
 
-Tolerance, from one activation quantum: the port's chains requantize the
-conv1 -> conv2 handoff from f32 where the JAX plain graph rounds it to bf16
-first, the two calibrations differ in the last f32 bits, and bf16 convs
+Tolerance, from one activation quantum: at c = 16 the port's chains take
+the JAX XLA int8 chain's cast points (both handoffs rounded to bf16, as
+the JAX plain graph rounds every conv output), but they add each block's
+residual to conv2's f32 output where the plain graph adds it to a bf16
+one, the two calibrations differ in the last f32 bits, and bf16 convs
 round at other places — each moves an int8 input by at most a bin or so.
 One bin at the input of the last stage module is ``q`` = its largest
 activation scale; through the 1x1 head it moves a heatmap by at most ``q``

@@ -9,10 +9,10 @@ JAX nor the JAX package, so it runs on a GPU host without JAX:
 for slot; the chain and the fuse (at a ragged 24 x 16 base; the W48 and
 W32 stage shapes are in tests/test_torch_cuda_fuse.py) 1e-4 of max in
 f32 with TF32 off (summation order only), 2^-6 of max in bf16
-(chip_smoke.py's limit); the int8 chain and the int8 conv bit for bit
-(exact int32 cores and the same IEEE f32 epilogue as their plain
-versions). The Winograd chain's card tests are in
-tests/test_torch_cuda_wino.py. HRNet at widths the chain kernels do not
+(chip_smoke.py's limit); the int8 conv bit for bit (exact int32 cores
+and the same IEEE f32 epilogue as its CPU path). The Winograd chain's card
+tests are in tests/test_torch_cuda_wino.py, the int8 chain's in
+tests/test_torch_cuda_int8.py. HRNet at widths the chain kernels do not
 take runs its plain modules there: 1e-4 of max in f32 (the same modules),
 2^-5 of max in bf16 (the fuse kernel rounds once where the plain fusion
 rounds at every conv and add, over ~90 layers).
@@ -96,25 +96,6 @@ def test_chain_kernel_rejects_width_not_multiple_of_8(dev):
     with pytest.raises(ValueError, match='multiple of 8'):
         TB.basic_chain(x, torch.zeros(8, 3, 3, 12, 12, device=dev),
                        torch.zeros(8, 12, device=dev))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('c', [16, 48])
-def test_int8_chain_kernel_matches_plain(dev, c):
-    g = torch.Generator(device=dev).manual_seed(33)
-    x = torch.randn(3, 24, 20, c, device=dev, generator=g)
-    w = torch.rand(8, c, c, 3, 3, device=dev, generator=g) * 0.2 - 0.1
-    b = torch.rand(8, c, device=dev, generator=g) * 2 - 1
-    amax = [4.0 + i for i in range(8)]
-    q = TI8.pack_chain_weights_int8([(w[i], b[i]) for i in range(8)], amax)
-    args = (q['wq'], q['wscale'], q['b'], q['ascales'])
-    launches = TI8.int8_chain.launches
-    out = TI8.int8_chain(x.bfloat16(), *args)
-    assert TI8.int8_chain.launches == launches + 1
-    assert torch.equal(out, TI8.int8_chain_plain(x.bfloat16(), *args))
-    with pytest.raises(ValueError, match='bf16'):
-        TI8.int8_chain(x, *args)
-    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
