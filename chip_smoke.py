@@ -8,18 +8,22 @@ Phases (any failure exits nonzero):
   1. build the five CUDA kernels from ``simple_hrnet_tpu_torch/csrc`` (one
      nvcc per source, all at once) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (every batch phase 4 gives the pose model): NMS,
-     the basic chain at W48 in bf16 and f32 (TF32 off), the fuse at W48 in
-     bf16 and f32 and at W32 in bf16, the Winograd chain at W32 in bf16,
-     the int8 chain exactly at W32 and W48 in both cast-point modes; show
-     that wrong-input controls fall outside each tolerance; time the kernel, the plain version and one
+     main paths' shapes (every batch phase 4 gives the pose model): NMS
+     slot for slot (the 8-frame and one-frame detects, unsorted scores, N
+     = 1000 and 1024, max_out > N), the basic chain at W48 in bf16 and
+     f32 (TF32 off), the fuse at W48 in bf16 and f32 and at W32 in bf16,
+     the Winograd chain at W32 in bf16, the int8 chain exactly at W32 and
+     W48 in both cast-point modes; show that wrong-input controls fall
+     outside each tolerance; time the kernel, the plain version and one
      library call (the kernels and the library calls replayed from CUDA
-     graphs over input sets larger than twice the L2: the basic chain at
-     W48 batches 32 and 2, the fuse at W48 with 1-3 sources and at W32
-     with 3, the Winograd and int8 chains at W32 batch 32, the Winograd
-     chain also beside K2 at its shape, and failing unless it beats
-     cuDNN's chain); check the int8 conv outside the chains
-     (``torch._int_mm``) against its CPU integer path;
+     graphs: NMS at the 8-frame and one-frame detects over a few input
+     sets, beside an empty kernel and its eager time; the others over
+     input sets larger than twice the L2: the basic chain at W48 batches
+     32 and 2, the fuse at W48 with 1-3 sources and at W32 with 3, the
+     Winograd and int8 chains at W32 batch 32, the Winograd chain also
+     beside K2 at its shape, and failing unless it beats cuDNN's chain);
+     check the int8 conv outside the chains (``torch._int_mm``) against
+     its CPU integer path;
   3. HRNet-W48 forward at 384x288, kernels against the plain path (f32);
   4. three main paths, each ``SimpleHRNet(c, 17, <.pth>, resolution,
      multiperson=True, yolo_model_def='yolov3', dtype)`` from a seeded
@@ -119,46 +123,120 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_nms(dev, rec):
-    from simple_hrnet_tpu_torch.ops.cuda import nms as K
+# K1's shapes: the 8-frame detect and one frame (batch, candidates, slots)
+NMS_SHAPES = ((8, 256, 32), (1, 256, 32))
+NMS_THRESH = 0.4
 
-    g = torch.Generator().manual_seed(1)
-    bsz, n, max_out, thr = 8, 256, 32, 0.4
+
+def _nms_inputs(dev, bsz, n, seed, sort=True):
+    """Detector-like NMS operands: boxes over a 416 frame, scores at 1/64
+    steps (exact ties: the lowest index must win), the last 22% padding
+    zeros, sorted descending as the detector passes them unless ``sort``
+    is False (then shuffled, padding included)."""
+    g = torch.Generator().manual_seed(seed)
     xy = torch.rand((bsz, n, 2), generator=g) * 380.0
     wh = torch.rand((bsz, n, 2), generator=g) * 150.0 + 4.0
     boxes = torch.cat([xy, xy + wh], -1)
-    # detector-like scores: sorted descending, a tail of padding zeros and
-    # some exact ties (lowest index must win)
-    scores = (torch.rand((bsz, n), generator=g) * 0.8 + 0.2)
+    scores = torch.rand((bsz, n), generator=g) * 0.8 + 0.2
     scores = torch.round(scores * 64) / 64
-    scores[:, 200:] = 0.0
-    scores = torch.sort(scores, dim=1, descending=True, stable=True).values
-    boxes, scores = boxes.to(dev), scores.to(dev)
+    scores[:, n * 200 // 256:] = 0.0
+    if sort:
+        scores = torch.sort(scores, dim=1, descending=True,
+                            stable=True).values
+    else:
+        perm = torch.argsort(torch.rand((bsz, n), generator=g), dim=1)
+        scores = torch.gather(scores, 1, perm)
+    return boxes.to(dev), scores.to(dev)
 
-    idx, valid = K.nms(boxes, scores, thr, max_out)
-    pidx, pvalid = K.nms_plain(boxes, scores, thr, max_out)
-    torch.cuda.synchronize()
-    if not torch.equal(valid, pvalid) or not torch.equal(idx, pidx):
-        raise AssertionError('nms kernel disagrees with its plain version')
+
+def empty_launch(dev):
+    """One empty kernel (``csrc/nms.cu`` ``sht_empty_kernel``) on the
+    current stream: the practical floor of one launch."""
+    import ctypes
+
+    from simple_hrnet_tpu_torch.ops.cuda import build
+    fn = build.library('nms').sht_empty_kernel
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    build.check(fn(build.stream_ptr(dev)), 'empty kernel')
+
+
+def time_nms(K, dev, shape, sets=4):
+    """K1 at ``shape`` replayed from a CUDA graph, cycling over ``sets``
+    input sets (each call's inputs lie in the L2, as the detector's
+    outputs do), and eagerly (the wrapper's host cost included)."""
+    bsz, n, max_out = shape
+    ins = [_nms_inputs(dev, bsz, n, seed=11 + i) for i in range(sets)]
+    ms = graph_ms([lambda a=a: K.nms(*a, NMS_THRESH, max_out) for a in ins])
+    eager = cuda_ms(lambda: K.nms(*ins[0], NMS_THRESH, max_out), iters=100)
+    return ms, eager
+
+
+def check_nms(dev, rec):
+    from simple_hrnet_tpu_torch.ops.cuda import nms as K
+
+    # (name, batch, N, max_out, sorted) — every case slot for slot
+    cases = (('detect 8 frames', 8, 256, 32, True),
+             ('one frame', 1, 256, 32, True),
+             ('unsorted, ties', 8, 256, 32, False),
+             ('N = 1000', 2, 1000, 100, False),
+             ('N = 1024', 2, 1024, 32, True),
+             ('max_out > N', 3, 33, 40, False))
+    for i, (what, bsz, n, max_out, sort) in enumerate(cases):
+        boxes, scores = _nms_inputs(dev, bsz, n, seed=1 + i, sort=sort)
+        idx, valid = K.nms(boxes, scores, NMS_THRESH, max_out)
+        pidx, pvalid = K.nms_plain(boxes, scores, NMS_THRESH, max_out)
+        torch.cuda.synchronize()
+        if not torch.equal(valid, pvalid) or not torch.equal(idx, pidx):
+            raise AssertionError(f'nms kernel disagrees with its plain '
+                                 f'version: {what} (B={bsz} N={n} '
+                                 f'max_out={max_out})')
+        print(f'K1 nms {what} (B={bsz} N={n} max_out={max_out}): exact, '
+              f'{valid.sum().item()} kept', flush=True)
+        if i == 0:
+            main = (boxes, scores, idx, valid)
+    boxes, scores, idx, valid = main
+    bsz, n, max_out = NMS_SHAPES[0]
     # the CPU plain version as well (same arithmetic on the host)
-    cidx, cvalid = K.nms_plain(boxes.cpu(), scores.cpu(), thr, max_out)
+    cidx, cvalid = K.nms_plain(boxes.cpu(), scores.cpu(), NMS_THRESH,
+                               max_out)
     if not torch.equal(idx.cpu(), cidx) or not torch.equal(valid.cpu(),
                                                            cvalid):
         raise AssertionError('nms kernel disagrees with the CPU plain version')
-    ms = cuda_ms(lambda: K.nms(boxes, scores, thr, max_out), iters=100)
-    plain_ms = cuda_ms(lambda: K.nms_plain(boxes, scores, thr, max_out),
-                       iters=10)
+    # control: the kernel at another threshold must not pass the check
+    widx, wvalid = K.nms(boxes, scores, NMS_THRESH - 0.05, max_out)
+    control = int(((widx != idx) | (wvalid != valid)).sum().item())
+    if control == 0:
+        raise AssertionError('nms control: the kernel at threshold '
+                             f'{NMS_THRESH - 0.05} equals the plain version '
+                             f'at {NMS_THRESH}')
+    print(f'K1 nms control (kernel at {NMS_THRESH - 0.05:.2f} against plain '
+          f'at {NMS_THRESH}): {control} slots differ', flush=True)
+
+    timings = []
+    for shape in NMS_SHAPES:
+        ms, eager = time_nms(K, dev, shape)
+        timings.append(dict(shape=f'B={shape[0]} N={shape[1]} '
+                            f'max_out={shape[2]}', ms=ms, eager_ms=eager))
+    floor_ms = graph_ms([lambda: empty_launch(dev)])
+    plain_ms = cuda_ms(lambda: K.nms_plain(boxes, scores, NMS_THRESH,
+                                           max_out), iters=10)
     ops = bsz * n * n * 12 + bsz * max_out * n * 3
     b_ms, b_by = bound(nbytes(boxes, scores, idx, valid), ops, torch.float32)
+    ms = timings[0]['ms']
     rec['nms'] = dict(
         name='nms', route='cuda', source='simple_hrnet_tpu_torch/csrc/nms.cu',
         replaces='simple_hrnet_tpu/ops/pallas/nms_pallas.py:135',
-        max_abs_err=0.0, tolerance='exact', ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f'B={bsz} N={n} max_out={max_out}',
+        max_abs_err=0.0, tolerance='exact', control_slots=control,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=timings[0]['shape'], timings=timings,
+        empty_kernel_ms=floor_ms, checked=[c[0] for c in cases],
         kept_per_image=valid.sum(1).tolist())
-    print(f'K1 nms: exact, {ms:.4f} ms (plain {plain_ms:.4f}, bound '
-          f'{b_ms:.5f} {b_by})', flush=True)
+    print('K1 nms, replayed from a CUDA graph (eager, with the host): ' +
+          '; '.join(f'{t["shape"]} {t["ms"]:.4f} ms ({t["eager_ms"]:.4f})'
+                    for t in timings) +
+          f'; empty kernel {floor_ms:.4f} ms; plain {plain_ms:.4f}, bound '
+          f'{b_ms:.5f} {b_by}', flush=True)
 
 
 def _chain_inputs(dev, dtype, bsz, h=96, w=72, c=48):
@@ -837,7 +915,7 @@ def run_main_path(dev, path, pth, weights, counters):
 # each port kernel's device functions (profiler names), summed over all
 # their instantiations
 PORT_KERNELS = {
-    'K1 nms': ('nms_kernel',),
+    'K1 nms': ('nms_mask', 'nms_scan'),
     'K2 basic_chain': ('conv3x3_bf16_tc', 'conv3x3_f32'),
     'B3 wino_chain': ('wino_conv_bf16',),
     'B4 int8_chain': ('int8_conv_tc', 'int8_quantize'),

@@ -2,7 +2,10 @@
 
 Counterpart of ``simple_hrnet_tpu/ops/pallas/nms_pallas.py`` (the Pallas
 ``_nms_kernel`` / ``_nms_kernel_batched``). The kernel is
-``csrc/nms.cu``; its note gives the bound on the H100 and the design.
+``csrc/nms.cu``: a bitmask in ranked order spread over (image, 32-row
+tile) blocks, then a one-warp scan per image as a programmatic dependent
+launch; its note gives the bound on the H100 and the design. One wrapper
+call is one launch of the pair.
 
 Contract (``ops/nms.nms_jax`` in the JAX package): per image, ``max_out``
 greedy rounds; each keeps the live box with the highest score (lowest
@@ -20,7 +23,8 @@ import torch
 
 from simple_hrnet_tpu_torch.ops.cuda import build
 
-# N above this would not fit one block's shared memory (the N x N bitmask)
+# the scan holds an image's "removed" bitmap in one warp's registers (32
+# lanes x 32 bits), and the mask kernel ranks with one thread a candidate
 MAX_N = 1024
 
 
@@ -82,7 +86,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     bsz, n = scores.shape
     if n > MAX_N:
         raise ValueError(f'nms kernel holds N <= {MAX_N} boxes in one '
-                         f'block\'s shared memory, got N = {n}')
+                         f'warp\'s bitmap, got N = {n}')
     if max_out < 0:
         raise ValueError(f'max_out must be >= 0, got {max_out}')
     boxes = boxes.contiguous()
@@ -97,11 +101,15 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         return keep_idx, keep_valid
     if n == 0:
         return keep_idx.zero_(), keep_valid.zero_()
+    # the ranked masks (B, n_pad, words) and rank -> index orders (B, n_pad)
+    words = -(-n // 32)
+    scratch = torch.empty((bsz * 32 * words * (words + 1),),
+                          dtype=torch.int32, device=boxes.device)
     fn = _fn()
     rc = fn(build.ptr(boxes), build.ptr(scores),
             ctypes.c_float(iou_threshold), bsz, n, max_out,
             build.ptr(keep_idx), build.ptr(keep_valid),
-            build.stream_ptr(boxes.device))
+            build.stream_ptr(boxes.device), build.ptr(scratch))
     build.check(rc, 'nms kernel')
     nms.launches += 1
     return keep_idx, keep_valid
@@ -116,5 +124,5 @@ def _fn():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return fn

@@ -1,5 +1,5 @@
 """Where K3's, K2's, B3's and B4's time goes: the kernels with phases left
-out.
+out; and K1 (NMS) timed whole beside other versions of it.
 
 Builds copies of ``csrc/fuse_up.cu`` (K3, the high-res fuse),
 ``csrc/fused_block.cu`` (K2, the branch-0 chain),
@@ -15,21 +15,30 @@ the W48 branch-0 shape with 32 and 2 crops, B3 in bf16 at the W32 branch-0
 shape with 32 and 2 crops (beside K2 at that shape), B4 at the W32
 branch-0 shape with 32 and 2 crops in the Pallas kernel's cast points
 (HRNet's mode at W32). A copy without some
-phase computes garbage; only its time means something. Needs a card and
-``nvcc``; run from the repository root:
+phase computes garbage; only its time means something. ``--kernel nms``
+times ``csrc/nms.cu`` (K1) at the 8-frame and one-frame detect shapes
+((8, 256, 32) and (1, 256, 32): images, candidates, slots), replayed from
+a CUDA graph as ``chip_smoke.py`` times it: whole, with only its mask
+kernel doing work (the scan returns after its wait), with neither kernel
+doing work, and beside an empty kernel. Needs a card and ``nvcc``; run
+from the repository root:
 
     python3 -m simple_hrnet_tpu_torch.utils.fuse_up_phases [--kernel K]
         [--chain-baseline OTHER/fused_block.cu ...]
         [--wino-baseline OTHER/winograd_chain.cu ...]
         [--int8-baseline OTHER/int8_chain.cu ...]
+        [--nms-baseline OTHER/nms.cu ...]
 
-``--chain-baseline``, ``--wino-baseline`` and ``--int8-baseline``
-(repeatable) also build other versions of ``fused_block.cu``,
-``winograd_chain.cu`` or ``int8_chain.cu`` (for example the parent
-commit's) and time each whole beside the kernel's variants, so versions
-are compared in one run on one card. An older ``int8_chain.cu`` whose C
-entry lacks the trailing cast-point argument runs its own cast points
-(the wrapper's extra argument is ignored).
+``--chain-baseline``, ``--wino-baseline``, ``--int8-baseline`` and
+``--nms-baseline`` (repeatable) also build other versions of
+``fused_block.cu``, ``winograd_chain.cu``, ``int8_chain.cu`` or
+``nms.cu`` (for example the parent commit's) and time each whole beside
+the kernel's variants, so versions are compared in one run on one card.
+An older ``int8_chain.cu`` whose C entry lacks the trailing cast-point
+argument runs its own cast points, and an older ``nms.cu`` whose C entry
+lacks the trailing scratch pointer ignores it (the wrapper's extra
+argument is ignored); each ``nms.cu`` must equal the plain version at
+both shapes before it is timed.
 
 Prints one line per variant (ms at each shape), a streaming yardstick (a
 ``copy_`` of the W48 base, to read the card's practical bytes/s) and the
@@ -128,6 +137,12 @@ def build_variants(name, out_dir, extra=None):
             f.write(variant_source(name, keep))
         sources[label] = cu
     sources.update(extra or {})
+    return compile_all(name, sources, out_dir)
+
+
+def compile_all(name, sources, out_dir):
+    """Compile each label's source, one nvcc each, all at once; returns
+    the loaded libraries by label."""
     procs = {}
     for i, (label, cu) in enumerate(sources.items()):
         so = os.path.join(out_dir, f'lib{name}_v{i}.so')
@@ -246,12 +261,67 @@ def int8_phases(cs, dev, baselines=()):
     build._LIBS.pop('int8_chain')
 
 
+# K1's phases: the scan kernel returning as soon as its wait ends ('mask
+# only': the mask kernel and both launches), and the mask kernel returning
+# at once as well ('launches only'); their results are garbage
+NMS_CUTS = {
+    'mask': (r'asm volatile\("griddepcontrol\.launch_dependents;\\n" '
+             r'::: "memory"\);', r'\g<0> if (n > 0) return;'),
+    'scan': (r'asm volatile\("griddepcontrol\.wait;\\n" ::: "memory"\);',
+             r'\g<0> return;'),
+}
+NMS_VARIANTS = {'mask only': ('scan',), 'launches only': ('mask', 'scan')}
+
+
+def nms_versions(cs, dev, baselines=()):
+    from simple_hrnet_tpu_torch.ops.cuda import nms as K1
+
+    out_dir = os.path.join(build.BUILD_DIR, 'nms_versions')
+    os.makedirs(out_dir, exist_ok=True)
+    tree = os.path.join(build.CSRC_DIR, 'nms.cu')
+    sources = {'tree': tree}
+    for i, (label, cuts) in enumerate(NMS_VARIANTS.items()):
+        with open(tree) as f:
+            src = f.read()
+        for cut in cuts:
+            src, n = re.subn(*NMS_CUTS[cut], src)
+            if n != 1:
+                raise RuntimeError(f'no single {cut} cut point in nms.cu')
+        sources[label] = os.path.join(out_dir, f'nms_cut{i}.cu')
+        with open(sources[label], 'w') as f:
+            f.write(src)
+    sources.update(_labelled(baselines))
+    libs = compile_all('nms', sources, out_dir)
+    print('K1 nms, ms at ' + ' and '.join(str(s) for s in cs.NMS_SHAPES) +
+          ' (images, candidates, slots), replayed from a CUDA graph; eager '
+          'in brackets:')
+    for label, lib in libs.items():
+        build._LIBS['nms'] = lib
+        if label not in NMS_VARIANTS:  # a whole version: check it first
+            for bsz, n, max_out in cs.NMS_SHAPES:
+                boxes, scores = cs._nms_inputs(dev, bsz, n, seed=11)
+                got = K1.nms(boxes, scores, cs.NMS_THRESH, max_out)
+                want = K1.nms_plain(boxes, scores, cs.NMS_THRESH, max_out)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f'{label} disagrees with nms_plain '
+                                         f'at {(bsz, n, max_out)}')
+        row = [cs.time_nms(K1, dev, shape) for shape in cs.NMS_SHAPES]
+        print(f'  {label:>14}: ' + '  '.join(f'{ms:.4f} ({eager:.4f})'
+                                             for ms, eager in row),
+              flush=True)
+    build._LIBS['nms'] = libs['tree']
+    print(f'  {"empty kernel":>14}: '
+          f'{cs.graph_ms([lambda: cs.empty_launch(dev)]):.4f}')
+    build._LIBS.pop('nms')
+
+
 def main():
     import chip_smoke as cs  # the repository root's: shapes, inputs, timing
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--kernel', choices=('fuse_up', 'basic_chain', 'wino',
-                                         'int8', 'all'), default='all')
+                                         'int8', 'nms', 'all'),
+                    default='all')
     ap.add_argument('--chain-baseline', metavar='FUSED_BLOCK_CU',
                     action='append', default=[],
                     help='another fused_block.cu to time whole beside K2')
@@ -261,6 +331,9 @@ def main():
     ap.add_argument('--int8-baseline', metavar='INT8_CHAIN_CU',
                     action='append', default=[],
                     help='another int8_chain.cu to time whole beside B4')
+    ap.add_argument('--nms-baseline', metavar='NMS_CU', action='append',
+                    default=[],
+                    help='another nms.cu to time whole beside K1')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('fuse_up_phases: no CUDA device visible', file=sys.stderr)
@@ -274,6 +347,8 @@ def main():
         wino_phases(cs, dev, args.wino_baseline)
     if args.kernel in ('int8', 'all'):
         int8_phases(cs, dev, args.int8_baseline)
+    if args.kernel in ('nms', 'all'):
+        nms_versions(cs, dev, args.nms_baseline)
     print(cs.card_line())
     return 0
 

@@ -5,20 +5,20 @@ JAX nor the JAX package, so it runs on a GPU host without JAX:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py imports JAX.) Tolerances: NMS slot
-for slot; the chain and the fuse (at a ragged 24 x 16 base; the W48 and
-W32 stage shapes are in tests/test_torch_cuda_fuse.py) 1e-4 of max in
-f32 with TF32 off (summation order only), 2^-6 of max in bf16
-(chip_smoke.py's limit); the int8 conv bit for bit (exact int32 cores
-and the same IEEE f32 epilogue as its CPU path). The Winograd chain's card
-tests are in tests/test_torch_cuda_wino.py, the int8 chain's in
-tests/test_torch_cuda_int8.py. HRNet at widths the chain kernels do not
-take runs its plain modules there: 1e-4 of max in f32 (the same modules),
-2^-5 of max in bf16 (the fuse kernel rounds once where the plain fusion
-rounds at every conv and add, over ~90 layers).
+(``--noconftest``: tests/conftest.py imports JAX.) Tolerances: the chain
+and the fuse (at a ragged 24 x 16 base; the W48 and W32 stage shapes are
+in tests/test_torch_cuda_fuse.py) 1e-4 of max in f32 with TF32 off
+(summation order only), 2^-6 of max in bf16 (chip_smoke.py's limit); the
+int8 conv bit for bit (exact int32 cores and the same IEEE f32 epilogue
+as its CPU path). The Winograd chain's card tests are in
+tests/test_torch_cuda_wino.py, the int8 chain's in
+tests/test_torch_cuda_int8.py, NMS's in tests/test_torch_cuda_nms.py.
+HRNet at widths the chain kernels do not take runs its plain modules
+there: 1e-4 of max in f32 (the same modules), 2^-5 of max in bf16 (the
+fuse kernel rounds once where the plain fusion rounds at every conv and
+add, over ~90 layers).
 """
 
-import numpy as np
 import pytest
 import torch
 
@@ -27,7 +27,6 @@ from simple_hrnet_tpu_torch.ops import int8 as T8
 from simple_hrnet_tpu_torch.ops.cuda import fuse_up as TF
 from simple_hrnet_tpu_torch.ops.cuda import fused_block as TB
 from simple_hrnet_tpu_torch.ops.cuda import int8_chain as TI8
-from simple_hrnet_tpu_torch.ops.cuda import nms as TN
 from simple_hrnet_tpu_torch.ops.cuda import winograd_chain as TW
 
 
@@ -38,23 +37,6 @@ def dev():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device('cuda')
-
-
-@pytest.mark.cuda
-def test_nms_kernel_matches_plain(dev):
-    rng = np.random.default_rng(30)
-    n = 256
-    xy = rng.uniform(0, 300, (3, n, 2))
-    boxes = np.concatenate([xy, xy + rng.uniform(10, 150, (3, n, 2))], -1)
-    scores = np.ceil(rng.uniform(0.01, 1.0, (3, n)) * 8) / 8  # ties
-    scores[rng.uniform(0, 1, (3, n)) < 0.1] = 0.0
-    bt = torch.tensor(boxes, dtype=torch.float32, device=dev)
-    st = torch.tensor(scores, dtype=torch.float32, device=dev)
-    launches = TN.nms.launches
-    idx, valid = TN.nms(bt, st, 0.45, 32)
-    pidx, pvalid = TN.nms_plain(bt, st, 0.45, 32)
-    assert TN.nms.launches == launches + 1
-    assert torch.equal(idx, pidx) and torch.equal(valid, pvalid)
 
 
 @pytest.mark.cuda
