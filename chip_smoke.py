@@ -8,15 +8,15 @@ Phases (any failure exits nonzero):
   1. build the five CUDA kernels from ``simple_hrnet_tpu_torch/csrc`` (one
      nvcc per source, all at once) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (every batch phase 4 gives the pose model): NMS
-     slot for slot (the 8-frame and one-frame detects, unsorted scores, N
+     main paths' shapes (every batch phases 4 and 5 give the pose model): NMS
+     slot for slot (the 8-, 4- and one-frame detects, unsorted scores, N
      = 1000 and 1024, max_out > N), the basic chain at W48 in bf16 and
      f32 (TF32 off), the fuse at W48 in bf16 and f32 and at W32 in bf16,
      the Winograd chain at W32 in bf16, the int8 chain exactly at W32 and
      W48 in both cast-point modes; show that wrong-input controls fall
      outside each tolerance; time the kernel, the plain version and one
      library call (the kernels and the library calls replayed from CUDA
-     graphs: NMS at the 8-frame and one-frame detects over a few input
+     graphs: NMS at the 8-, 4- and one-frame detects over a few input
      sets, beside an empty kernel and its eager time; the others over
      input sets larger than twice the L2: the basic chain at W48 batches
      32 and 2, the fuse at W48 with 1-3 sources and at W32 with 3, the
@@ -36,8 +36,27 @@ Phases (any failure exits nonzero):
      the pose path, that its kernels ran there (8 chain launches per pose
      forward), and that the pose model ran only at batches phase 2
      checked; it is timed, and its 8-frame call is profiled (device time
-     by kernel, and each port kernel's device time and launches summed
-     over all its instantiations).
+     by kernel, each port kernel's device time and launches summed over
+     all its instantiations, and the idle share against the host time);
+  5. the stream: ``predict_stream`` at W48-384x288 with the seeded
+     YOLOv3-416 on 16 synthetic frames, in five modes (fixed per-frame
+     with 16 slots, fixed chunked 4 frames a launch, adaptive per-frame
+     and chunked with cap 16, compact 4 frames a window). In f32 (TF32
+     off) each adaptive mode must equal its fixed mode and compact the
+     fixed chunked mode (boxes equal, heatmaps and keypoints within 1e-4),
+     and the fixed per-frame stream the first 16 people of
+     ``predict(frame)``; a stub detector whose count follows each frame's
+     mean makes a scene that must take the adaptive stream to its
+     detect-only rung 0 and back. Every run resets the launch counts just
+     before and reads them just after (K1 once a detect, the chain and
+     the fuse 8 times a pose forward), runs every upload and runner call
+     in sync-debug mode 'error', and fails on a pose batch phase 2 did not
+     check. Then, in bf16 after ``warmup``, each mode over 128 frames
+     (the 16 looped): a first run checked as above (launches, pose
+     batches, guarded dispatch, people and finite keypoints), frames/s
+     from five timed runs (median, min, max) beside ``predict`` frame by
+     frame and on stacks of 4, and device busy time and idle share over
+     the first 32 frames (one profiled run against three timed ones).
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -79,11 +98,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # step of max, and the other cast-point mode's result must differ at all
 TOL_INT8_CONTROL = 2.0 ** -8
 
-# the batches phase 4's predict calls give the pose model (max_batch_size
-# 32, 32 people a frame from the random detector): 2 and 32 for one frame,
-# 16 and 32 for the stack of 8. Phase 2 checks the kernels at each; phase 4
-# fails if the pose model sees another.
-POSE_BATCHES = (2, 16, 32)
+# the batches the W48 paths give the pose model: phase 4's predict calls
+# (max_batch_size 32, 32 people a frame from the random detector) 2 and 32
+# for one frame, 16 and 32 for the stack of 8; phase 5's streams (16
+# people a frame) 2-16 a frame and 8-64 in chunks of 4 frames. Phase 2
+# checks the kernels at each; phases 4 and 5 fail if the pose model sees
+# another.
+POSE_BATCHES = (2, 4, 8, 16, 32, 64)
+# the batch at which phase 2 times the W48 kernels and holds the controls
+TIME_BATCH = 32
 # the W32 paths: every power-of-two bucket predict can form at
 # max_batch_size 32 (the int8 detector may keep other counts of people)
 POSE_BATCHES_W32 = (1, 2, 4, 8, 16, 32)
@@ -123,8 +146,9 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-# K1's shapes: the 8-frame detect and one frame (batch, candidates, slots)
-NMS_SHAPES = ((8, 256, 32), (1, 256, 32))
+# K1's shapes (batch, candidates, slots): the 8-frame detect of phase 4,
+# the 4-frame detect of phase 5's chunked streams and one frame
+NMS_SHAPES = ((8, 256, 32), (4, 256, 32), (1, 256, 32))
 NMS_THRESH = 0.4
 
 
@@ -177,6 +201,7 @@ def check_nms(dev, rec):
 
     # (name, batch, N, max_out, sorted) — every case slot for slot
     cases = (('detect 8 frames', 8, 256, 32, True),
+             ('detect 4 frames', 4, 256, 32, True),
              ('one frame', 1, 256, 32, True),
              ('unsorted, ties', 8, 256, 32, False),
              ('N = 1000', 2, 1000, 100, False),
@@ -315,7 +340,7 @@ def check_chain(dev, rec):
             print(f'K2 basic_chain {str(dtype)[6:]} B={bsz}: max abs err '
                   f'{err:.3e} (rel {rel:.3e}, tol {TOL[dtype]:.1e})',
                   flush=True)
-    bsz = max(POSE_BATCHES)
+    bsz = TIME_BATCH
     x, wt, b = _chain_inputs(dev, torch.bfloat16, bsz)
     ref = K.basic_chain_plain(x, wt, b)
     last_dropped = b.clone()
@@ -481,7 +506,7 @@ def check_fuse_up(dev, rec):
         print(f'K3 fuse_up {str(dtype)[6:]} base {shape} B={batches}, 1-3 '
               f'sources: max abs err {e[0]:.3e} (rel {e[1]:.3e}, tol '
               f'{TOL[dtype]:.1e})', flush=True)
-    bsz = max(POSE_BATCHES)
+    bsz = TIME_BATCH
     base, ys, ws, bsum = _fuse_inputs(dev, torch.bfloat16, 3, bsz)
     control = check_controls('K3 bf16', K.fuse_up_plain(base, ys, ws, bsum), {
         'bias dropped': K.fuse_up_plain(base, ys, ws, torch.zeros_like(bsum)),
@@ -905,8 +930,12 @@ def run_main_path(dev, path, pth, weights, counters):
         'build_s': build_s, 'predict_ms_single': t['single'] * 1e3,
         'predict_ms_stack8': t['stack8'] * 1e3}
     busy_ms, top, port = profile_predict(name, model, frames)
+    idle = 1.0 - busy_ms / (t['stack8'] * 1e3)
+    print(f'phase 4 [{name}]: predict(8 frames) host {t["stack8"] * 1e3:.1f} '
+          f'ms, device busy {busy_ms:.2f} ms, idle share {100 * idle:.1f}%',
+          flush=True)
     summary.update(stack8_device_busy_ms=busy_ms, stack8_top_device_ms=top,
-                   stack8_port_kernels=port)
+                   stack8_port_kernels=port, stack8_idle_share=idle)
     del model
     torch.cuda.empty_cache()
     return launches, single, stack, summary
@@ -923,16 +952,16 @@ PORT_KERNELS = {
 }
 
 
-def profile_predict(name, model, frames):
-    """Device time by kernel over one ``predict`` of the 8-frame stack
-    (torch.profiler, CUDA activity). Returns the summed device time, the
-    ten largest entries and each port kernel's [ms, launches] summed over
-    all its instantiations."""
+def device_profile(fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler, CUDA
+    activity). Returns the summed device ms, the rows (ms, calls, name)
+    largest first, and each port kernel's [ms, launches] summed over all
+    its instantiations."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.predict(frames)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -945,23 +974,353 @@ def profile_predict(name, model, frames):
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f'phase 4 [{name}]: profile of predict(8 frames): device busy '
-          f'{busy:.2f} ms; by kernel (ms, calls, name):', flush=True)
-    for ms, n, key in rows[:15]:
-        print(f'    {ms:9.3f} {n:6d}  {key[:110]}')
     port = {}
     for kernel, funcs in PORT_KERNELS.items():
         hit = [(ms, n) for ms, n, key in rows
                if any(re.search(rf'\b{f}\b', key) for f in funcs)]
         if hit:
             port[kernel] = [sum(ms for ms, _ in hit), sum(n for _, n in hit)]
+    return sum(r[0] for r in rows), rows, port
+
+
+def profile_predict(name, model, frames):
+    """Device time by kernel over one ``predict`` of the 8-frame stack.
+    Returns the summed device time, the ten largest entries and each port
+    kernel's [ms, launches] summed over all its instantiations."""
+    busy, rows, port = device_profile(lambda: model.predict(frames))
+    print(f'phase 4 [{name}]: profile of predict(8 frames): device busy '
+          f'{busy:.2f} ms; by kernel (ms, calls, name):', flush=True)
+    for ms, n, key in rows[:15]:
+        print(f'    {ms:9.3f} {n:6d}  {key[:110]}')
     print(f'phase 4 [{name}]: port kernels, all instantiations (ms, '
           f'launches): ' + '; '.join(f'{k} {ms:.3f} ms, {n}'
                                      for k, (ms, n) in port.items()),
           flush=True)
     return busy, [[round(ms, 4), n, key[:80]] for ms, n, key in rows[:10]], \
         port
+
+
+# phase 5's stream modes at W48-384x288 on 480x640 frames: (name,
+# predict_stream keywords); 16 people a frame, the cap of the adaptive modes
+STREAM_MODES = (
+    ('fixed', dict(max_people=16, prefetch=2)),
+    ('chunked', dict(max_people=16, batch_frames=4)),
+    ('adaptive', dict(max_people=16, adaptive_slots=True)),
+    ('adaptive_chunked', dict(max_people=16, batch_frames=4,
+                              adaptive_slots=True)),
+    ('compact', dict(max_people=16, batch_frames=4, compact_crops=True)),
+)
+# what each mode must equal: the adaptive modes their fixed-slot mode,
+# compact the fixed chunked stream
+STREAM_REFERENCE = {'adaptive': 'fixed', 'adaptive_chunked': 'chunked',
+                    'compact': 'chunked'}
+# the f32 agreement tolerance on heatmaps and keypoints (the JAX package's
+# stream tests hold its modes to each other so): the modes differ only in
+# the pose batches they form
+STREAM_TOL = 1e-4
+# the stub scene (``VaryStub`` of tests/torch_stream_stubs.py, whose
+# person count follows each frame's mean; the random YOLOv3 finds 32
+# people on every frame, so only such a scene rises and falls): people per
+# frame (rising and falling through empty frames), the adaptive window that
+# lets it reach rung 0 and return, and the people cap (the stub's 8 rows)
+STUB_COUNTS = (3, 3, 1, 0, 0, 0, 0, 0, 6, 2, 7, 0)
+STUB_WINDOW = 2
+STUB_CAP = 8
+# phase 5's timing window: ``smooth_frames(16)`` looped to 128 frames, so
+# that start-up (the adaptive ladder's climb, the pipeline's fill and
+# drain) is a few launches of many; each mode timed this many times. The
+# idle share comes from the window's first 32 frames (a profiled run of
+# 128 frames takes minutes to summarize), timed three times unprofiled.
+STREAM_TIME_FRAMES = 128
+STREAM_TIME_RUNS = 5
+STREAM_PROFILE_FRAMES = 32
+
+
+def drive_stream(model, frames, kw, counters):
+    """One ``predict_stream`` run with every kernel's count set to 0 just
+    before and read just after, every upload and runner call in sync-debug
+    mode 'error' (``utils/dispatch.strict_dispatch``). Returns the results
+    and the run's record: launches, pose batches, detector calls, guarded
+    calls. Fails if the pose model saw a batch phase 2 did not check, or if
+    a kernel ran other than once a detect (the real detector), 8 times a
+    pose forward (the chain) and once a stage module (the fuse)."""
+    from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
+    from simple_hrnet_tpu_torch.utils.dispatch import strict_dispatch
+
+    seen, detects = [], []
+    det = model.detector
+    real_detect = det.detect_padded
+    det.detect_padded = lambda f: (detects.append(f.shape[0]),
+                                   real_detect(f))[1]
+    hook = model.model.register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0].shape[0]))
+    try:
+        for k in counters.values():
+            k.launches = 0
+        with strict_dispatch(model) as calls:
+            out = list(model.predict_stream(frames, **kw))
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        hook.remove()
+        del det.detect_padded
+    if not set(seen) <= set(POSE_BATCHES):
+        raise AssertionError(f'stream {kw}: the pose model ran at batches '
+                             f'{sorted(set(seen))}; phase 2 checked the '
+                             f'kernels at {POSE_BATCHES}')
+    real = isinstance(det, YOLOv3)
+    want = {'nms': len(detects) if real else 0,
+            'basic_chain': 8 * len(seen), 'fuse_up': 8 * len(seen),
+            'wino_chain': 0, 'int8_chain': 0}
+    if launches != want or (real and not detects):
+        raise AssertionError(f'stream {kw}: launches {launches} over '
+                             f'{len(detects)} detects and {len(seen)} pose '
+                             f'forwards; want {want}')
+    if not calls.get('_upload') or sum(calls.values()) <= calls['_upload']:
+        raise AssertionError(f'stream {kw}: dispatch not guarded ({calls})')
+    return out, dict(launches=launches, pose_batches=seen,
+                     detects=len(detects), guarded_calls=dict(calls))
+
+
+def check_people(what, out, n_frames):
+    """A stream's results: one a frame, 1-16 people each (the random
+    YOLOv3 finds 32 a frame, the streams keep 16), every array finite.
+    Returns the people a frame."""
+    arrays = [o if isinstance(o, list) else [o] for o in out]
+    people = [a[-1].shape[0] for a in arrays]
+    if len(out) != n_frames or not all(0 < n <= 16 for n in people):
+        raise AssertionError(f'[{what}] people a frame {people} over '
+                             f'{len(out)} of {n_frames} frames')
+    if not all(np.isfinite(x).all() for a in arrays for x in a):
+        raise AssertionError(f'[{what}] non-finite heatmaps or keypoints')
+    return people
+
+
+def stream_err(what, out, ref, limit=None):
+    """Max |difference| of heatmaps and keypoints over two streams' frames
+    (``limit``: compare the first ``limit`` people of ``ref``'s frames);
+    boxes must be equal and shapes the same. Fails above STREAM_TOL."""
+    if len(out) != len(ref):
+        raise AssertionError(f'{what}: {len(out)} frames against {len(ref)}')
+    err = 0.0
+    for i, (o, r) in enumerate(zip(out, ref)):
+        o = [np.asarray(a) for a in o]
+        r = [np.asarray(a)[:limit] for a in r]
+        if [a.shape for a in o] != [a.shape for a in r]:
+            raise AssertionError(f'{what}, frame {i}: shapes '
+                                 f'{[a.shape for a in o]} against '
+                                 f'{[a.shape for a in r]}')
+        if not np.array_equal(o[1], r[1]):
+            raise AssertionError(f'{what}, frame {i}: boxes differ')
+        for a, b in ((o[0], r[0]), (o[2], r[2])):
+            if a.size:
+                err = max(err, float(np.abs(a - b).max()))
+    if err > STREAM_TOL:
+        raise AssertionError(f'{what}: max err {err} > {STREAM_TOL}')
+    return err
+
+
+def check_stream_agreement(model, frames, counters):
+    """Phase 5 in f32 (TF32 off) with the random YOLOv3: each mode once,
+    held to its reference mode, and the per-frame stream to the first 16
+    people of ``predict(frame)``."""
+    results, record = {}, {}
+    for name, kw in STREAM_MODES:
+        out, record[name] = drive_stream(model, frames, kw, counters)
+        people = check_people(f'{name} f32', out, len(frames))
+        results[name] = out
+        r = record[name]
+        print(f'phase 5 [{name}] f32: people {people}; pose batches '
+              f'{r["pose_batches"]}; launches {r["launches"]} over '
+              f'{r["detects"]} detects; guarded dispatch calls '
+              f'{r["guarded_calls"]}', flush=True)
+    errs = {f'{name} vs {ref}': stream_err(f'{name} vs {ref}', results[name],
+                                           results[ref])
+            for name, ref in STREAM_REFERENCE.items()}
+    single = [model.predict(f) for f in frames]
+    errs['fixed vs predict'] = stream_err('fixed vs predict(frame)',
+                                          results['fixed'], single, limit=16)
+    print(f'phase 5 agreement (f32, max |err| of heatmaps and keypoints, '
+          f'boxes equal, tol {STREAM_TOL:.0e}): ' +
+          '; '.join(f'{k} {v:.3e}' for k, v in errs.items()), flush=True)
+    return record, errs
+
+
+def check_stub_scene(model, counters, dev):
+    """Phase 5's rising and falling scene (f32), on a facade of its own
+    (runners keep the detector they were built with): the adaptive stream
+    must run the detect-only rung 0 and come back to a pose rung; every
+    mode must equal the fixed-slot stream there."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tests'))
+    from torch_stream_stubs import VaryStub, frames_with_counts
+
+    counts = list(STUB_COUNTS)
+    frames = frames_with_counts(counts, shape=(480, 640, 3))
+    model.detector = VaryStub(dev)
+    rungs = []
+    spies = {
+        '_fused_frame': lambda hw, s, _g=model._fused_frame: (
+            rungs.append(s), _g(hw, s))[1],
+        '_detect_counts': lambda hw, n, _g=model._detect_counts: (
+            rungs.append(0), _g(hw, n))[1]}
+    modes = (('adaptive', dict(adaptive_slots=True, slot_window=STUB_WINDOW)),
+             ('adaptive_chunked', dict(batch_frames=4, adaptive_slots=True,
+                                       slot_window=STUB_WINDOW)),
+             ('compact', dict(batch_frames=4, compact_crops=True)))
+    record, outs = {}, {}
+    fixed, record['fixed'] = drive_stream(
+        model, frames, dict(max_people=STUB_CAP), counters)
+    for name, kw in modes:
+        if name == 'adaptive':  # the per-frame rungs, 0 = the counts runner
+            model.__dict__.update(spies)
+        try:
+            outs[name], record[name] = drive_stream(
+                model, frames, dict(max_people=STUB_CAP, **kw), counters)
+        finally:
+            for spy in spies:
+                model.__dict__.pop(spy, None)
+    if [o[2].shape[0] for o in fixed] != counts:
+        raise AssertionError(f'stub scene: people '
+                             f'{[o[2].shape[0] for o in fixed]} against '
+                             f'{counts}')
+    first_idle = rungs.index(0) if 0 in rungs else None
+    if first_idle is None or not any(r > 0 for r in rungs[first_idle:]):
+        raise AssertionError(f'stub scene: the adaptive stream ran rungs '
+                             f'{rungs}; want rung 0 and a pose rung after it')
+    errs = {name: stream_err(f'stub {name}', out, fixed)
+            for name, out in outs.items()}
+    print(f'phase 5 stub scene (f32): people {counts}; adaptive rungs '
+          f'{rungs}; max |err| against the fixed stream: ' +
+          '; '.join(f'{k} {v:.3e}' for k, v in errs.items()), flush=True)
+    return dict(counts=counts, rungs=rungs, errs=errs, record=record)
+
+
+def time_streams(pth, weights, counters):
+    """Phase 5's timing in bf16: ``warmup``, then each mode over
+    STREAM_TIME_FRAMES frames (``smooth_frames(16)`` looped) beside
+    ``predict`` frame by frame and on stacks of 4 (keypoints only, as users
+    call it by default). Each stream mode's first run is ``drive_stream``'s
+    (launches, pose batches and dispatch checked) and its results are
+    checked; then STREAM_TIME_RUNS runs on the host clock around the whole
+    run, which ends in a device-to-host copy; then, on the first
+    STREAM_PROFILE_FRAMES frames, three such runs and one profiled run:
+    device busy and the idle share against their median host time.
+    Returns the table and each stream mode's checked run's record."""
+    from simple_hrnet_tpu_torch import SimpleHRNet
+
+    model = SimpleHRNet(48, 17, pth, resolution=(384, 288),
+                        yolo_model_def='yolov3', yolo_weights_path=weights,
+                        dtype='bfloat16', device='cuda')
+    hw = (480, 640)
+    t0 = time.perf_counter()
+    sizes = [model.warmup(hw, batch_sizes=(1, 4), stream_max_people=16,
+                          stream_batch_frames=(1, 4)),
+             model.warmup(hw, batch_sizes=(),
+                          stream_max_people=('adaptive', 16),
+                          stream_batch_frames=(1, 4)),
+             model.warmup(hw, batch_sizes=(),
+                          stream_max_people=('compact', 16),
+                          stream_batch_frames=(4,))]
+    warm_s = time.perf_counter() - t0
+    print(f'phase 5 timing: W48-384x288 bf16 warmup {warm_s:.1f} s, runner '
+          f'caches {sizes[-1]}', flush=True)
+    frames = list(smooth_frames(16)) * (STREAM_TIME_FRAMES // 16)
+    n, n_prof = len(frames), STREAM_PROFILE_FRAMES
+    kws = dict(STREAM_MODES)
+
+    def runner(name, fr):
+        if name == 'predict_1':
+            return lambda: [model.predict(f) for f in fr]
+        if name == 'predict_4':
+            stacks = [np.stack(fr[i:i + 4]) for i in range(0, len(fr), 4)]
+            return lambda: [model.predict(s) for s in stacks]
+        return lambda: list(model.predict_stream(fr, **kws[name]))
+
+    def host_s(fn, reps):
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        return secs
+
+    table, record = {}, {}
+    for name in ('predict_1', 'predict_4', *kws):
+        fn, short = runner(name, frames), runner(name, frames[:n_prof])
+        # the warm run: the people buckets this scene forms
+        if name in kws:
+            out, record[name] = drive_stream(model, frames, kws[name],
+                                             counters)
+            people = check_people(f'{name} bf16', out, n)
+            print(f'phase 5 [{name}] bf16: people a frame {min(people)}-'
+                  f'{max(people)}; pose batches '
+                  f'{sorted(set(record[name]["pose_batches"]))}; launches '
+                  f'{record[name]["launches"]} over '
+                  f'{record[name]["detects"]} detects', flush=True)
+        else:
+            fn()
+        torch.cuda.synchronize()
+        secs = host_s(fn, STREAM_TIME_RUNS)
+        short_ms = 1e3 * float(np.median(host_s(short, 3)))
+        busy, _, port = device_profile(short)
+        med = float(np.median(secs))
+        fps = sorted(n / s for s in secs)
+        table[name] = dict(frames=n, host_ms=[1e3 * s for s in secs],
+                           frames_per_s=fps,
+                           frames_per_s_median=n / med,
+                           profiled_frames=n_prof,
+                           profiled_host_ms=short_ms,
+                           device_busy_ms=busy,
+                           idle_share=1.0 - busy / short_ms,
+                           port_kernels=port)
+        print(f'phase 5 timing [{name}]: {n} frames, {len(secs)} runs: '
+              f'median {n / med:.2f} frames/s (min {fps[0]:.2f}, max '
+              f'{fps[-1]:.2f}; host ms '
+              f'{" / ".join(f"{1e3 * s:.1f}" for s in secs)}); first '
+              f'{n_prof} frames: host {short_ms:.1f} ms, device busy '
+              f'{busy:.2f} ms, idle share '
+              f'{100 * table[name]["idle_share"]:.1f}%; port kernels '
+              + '; '.join(f'{k} {ms:.3f} ms, {c}'
+                          for k, (ms, c) in port.items()), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(warmup_s=warm_s, runner_caches=sizes[-1], runs=table), record
+
+
+def run_stream_phase(dev, pth, weights, counters):
+    """Phase 5: the stream modes at W48-384x288 with the seeded YOLOv3-416 on
+    ``smooth_frames``: agreement in f32, the stub scene, launches and
+    dispatch checked in every run, then timing in bf16. Returns each
+    checked run's launches and the phase's record."""
+    from simple_hrnet_tpu_torch import SimpleHRNet
+
+    def facade():
+        return SimpleHRNet(48, 17, pth, resolution=(384, 288),
+                           yolo_model_def='yolov3', yolo_weights_path=weights,
+                           return_heatmaps=True, return_bounding_boxes=True,
+                           device='cuda')
+
+    t0 = time.perf_counter()
+    record, errs = check_stream_agreement(facade(), list(smooth_frames(16)),
+                                          counters)
+    stub = check_stub_scene(facade(), counters, dev)
+    torch.cuda.empty_cache()
+    timing, bf16 = time_streams(pth, weights, counters)
+    print(f'phase 5: {time.perf_counter() - t0:.1f} s', flush=True)
+    launches = {f'stream_{k}': v['launches'] for k, v in record.items()}
+    launches.update({f'stream_stub_{k}': v['launches']
+                     for k, v in stub['record'].items()})
+    launches.update({f'stream_bf16_{k}': v['launches']
+                     for k, v in bf16.items()})
+    per_frame = {k: {n: c / 16 for n, c in v['launches'].items()}
+                 for k, v in record.items()}
+    per_frame.update({f'{k}_bf16': {n: c / STREAM_TIME_FRAMES
+                                    for n, c in v['launches'].items()}
+                      for k, v in bf16.items()})
+    return launches, dict(agreement_max_err=errs, modes=record,
+                          launches_per_frame=per_frame, stub_scene=stub,
+                          timing=timing)
 
 
 def card_line():
@@ -1029,6 +1388,13 @@ def main():
                     if launches[k]:
                         by_path[k][path[0]] = {'single': single[k],
                                                'stack8': stack[k]}
+            stream_launches, summary['stream'] = run_stream_phase(
+                dev, pths[48], weights, counters)
+            for run, launches in stream_launches.items():
+                for k in counters:
+                    totals[k] += launches[k]
+                    if launches[k]:
+                        by_path[k][run] = launches[k]
         if any(n == 0 for n in totals.values()):
             raise AssertionError(f'a kernel was not launched on the main '
                                  f'paths: {totals}')

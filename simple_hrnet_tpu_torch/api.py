@@ -17,13 +17,22 @@ chain B3 or the int8 chain B4 — and K3 in every stage module) and
 argmax-decoded. The first host read is the people count, after the first
 pose batch.
 
+``predict_stream`` (fixed-slot, chunked, adaptive and compact modes) and
+``warmup`` are the JAX facade's video entry points. A stream launch copies
+its frames to the card from pinned memory without a stream
+synchronization and calls a runner — a closure cached under the key the
+JAX facade gives its jitted graph — that queues its kernels and reads
+nothing back, so launches queue up while the host decodes earlier results
+(``prefetch``).
+
 Constructor options of the JAX facade that are not ported raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import collections
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +45,7 @@ from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import decode as D
 from simple_hrnet_tpu_torch.ops import image as I
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
-from simple_hrnet_tpu_torch.utils.device import resolve_device
+from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
 
 
 def _buckets(n: int, max_batch: int) -> int:
@@ -46,6 +55,83 @@ def _buckets(n: int, max_batch: int) -> int:
     while b < n and b < cap:
         b *= 2
     return min(b, cap)
+
+
+def _chunks(frames, batch_frames: int):
+    """``frames`` as launches of ``batch_frames`` frames of one shape:
+    yields (stacked frames, count of real frames). A change of frame shape
+    flushes the chunk, and a short chunk is padded with its last frame."""
+    buf = []
+    for frame in frames:
+        f = np.ascontiguousarray(frame)
+        if buf and f.shape != buf[0].shape:
+            yield np.stack(buf + [buf[-1]] * (batch_frames - len(buf))), \
+                len(buf)
+            buf = []
+        buf.append(f)
+        if len(buf) >= batch_frames:
+            yield np.stack(buf), len(buf)
+            buf = []
+    if buf:
+        yield np.stack(buf + [buf[-1]] * (batch_frames - len(buf))), len(buf)
+
+
+def _slot_ladder(cap: int):
+    """Empty rung + power-of-two people-slot rungs up to ``cap`` (always
+    included): cap=16 -> [0, 2, 4, 8, 16]. The adaptive stream walks this
+    ladder so the pose batch tracks the scene's person count instead of
+    the worst case. Rung 0 is the idle-camera tier: a detect-only launch
+    (no pose batch at all) that escalates on the first detection."""
+    ladder = [0]
+    s = 2
+    while s < cap:
+        ladder.append(s)
+        s *= 2
+    ladder.append(cap)
+    return ladder
+
+
+class _SlotController:
+    """Hysteresis controller for adaptive people-slot sizing.
+
+    Escalation is handled by the caller (it must re-run the saturated
+    launch); this object tracks the current rung and steps DOWN only after
+    a full window of observed per-launch people counts fits strictly
+    below the next rung down (strictly: landing exactly at a rung's
+    capacity would immediately saturate it and re-escalate — thrash)."""
+
+    def __init__(self, cap: int, window: int):
+        self.ladder = _slot_ladder(cap)
+        # start at the smallest POSE rung, not the empty rung: most streams
+        # open on a populated scene, and a rung-0 first frame with people
+        # would always pay a double launch. Rung 0 is reached by descent
+        # after a full window of empty frames.
+        self.idx = min(1, len(self.ladder) - 1)
+        self.cap = cap
+        self.counts = collections.deque(maxlen=max(1, window))
+
+    @property
+    def slots(self) -> int:
+        return self.ladder[self.idx]
+
+    def escalate(self, saturated_slots: int) -> int:
+        """Move to the first rung ABOVE a saturated launch's slot count (a
+        saturated count means the slot truncation may have dropped real
+        people)."""
+        while self.ladder[self.idx] <= saturated_slots:
+            self.idx += 1
+        self.counts.clear()
+        return self.ladder[self.idx]
+
+    def observe(self, n: int) -> None:
+        self.counts.append(n)
+        # descend when the window fits strictly below the next rung down;
+        # the rung-0 threshold is 1 (descend only after an ALL-EMPTY
+        # window — any detection at rung 0 forces an escalation re-run)
+        if (self.idx > 0 and len(self.counts) == self.counts.maxlen
+                and max(self.counts) < max(1, self.ladder[self.idx - 1])):
+            self.idx -= 1
+            self.counts.clear()
 
 
 def _pose_tail(model, crops: torch.Tensor, padded_boxes: torch.Tensor
@@ -173,6 +259,9 @@ class SimpleHRNet:
                                dtype='int8' if self.quantize_int8 else
                                None if self.dtype == torch.float32
                                else 'bfloat16')
+        # runner caches, keyed as the JAX facade keys its jit caches
+        self._gather_runs: Dict[tuple, Callable] = {}
+        self._fused_runs: Dict[tuple, Callable] = {}
 
     @torch.no_grad()
     def _calibrate_int8(self, model: hrnet.HRNet):
@@ -200,71 +289,511 @@ class SimpleHRNet:
         return Q.calibrate(model, [torch.from_numpy(batch).to(self.device)])
 
     # ------------------------------------------------------------------
-    # device pipeline
+    # device pipeline: runners
     # ------------------------------------------------------------------
+    #
+    # A runner is one launch of device work: it takes tensors already on
+    # the device, queues kernels and returns tensors on the device, with no
+    # host read and no stream synchronization inside. Runners are cached
+    # under the JAX facade's jit-cache keys (its api.py:414-416), so
+    # ``warmup`` reports the same counts.
 
-    @torch.no_grad()
-    def _gather_crop(self, bucket: int, frames_rgb: torch.Tensor,
-                     rows: torch.Tensor, valid: torch.Tensor, start: int,
-                     clamp_hw: Optional[tuple]):
-        """One window of the compaction pipeline: valid (frame, box) pairs
-        ordered frame-major (stable argsort), ``bucket`` of them from
-        ``start`` cropped, posed and decoded. Slots past the total are
-        computed and dropped by the caller."""
+    def _gather_crop(self, bucket: int, clamp_hw: Optional[tuple] = None
+                     ) -> Callable:
+        """The compaction runner of one ``bucket`` (JAX
+        ``_get_gather_crop``): ``run(frames_rgb, rows, valid, start)`` orders
+        the valid (frame, box) pairs frame-major (stable argsort) and crops,
+        poses and decodes ``bucket`` of them from ``start``; it returns the
+        total count, the per-frame counts, heatmaps, padded boxes and
+        keypoints. Slots past the total are computed and dropped by the
+        caller."""
+        key = ('gather', bucket, clamp_hw)
+        if key in self._gather_runs:
+            return self._gather_runs[key]
         res_h, res_w = self.resolution
-        d = valid.shape[1]
-        flat_valid = valid.reshape(-1)
-        counts = valid.sum(dim=1)
-        total = flat_valid.sum()
-        order = torch.argsort((~flat_valid).to(torch.uint8), stable=True)
-        order = torch.cat([order, order.new_zeros(bucket)])
-        sel = order[start:start + bucket]
-        fi = sel // d
-        boxes = torch.round(rows.reshape(-1, rows.shape[-1])[sel][:, :4])
-        padded = I.pad_to_aspect(boxes, res_h / res_w, clamp_hw=clamp_hw)
-        crops = I.crop_resize_pil(
-            frames_rgb, fi, padded, (res_h, res_w),
-            valid_boxes=None if clamp_hw is not None else boxes)
-        hm, pts = _pose_tail(self.model, crops, padded)
-        return total, counts, hm, padded, pts
+        model = self.model
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor, rows: torch.Tensor,
+                valid: torch.Tensor, start: int):
+            d = valid.shape[1]
+            flat_valid = valid.reshape(-1)
+            counts = valid.sum(dim=1)
+            total = flat_valid.sum()
+            order = torch.argsort((~flat_valid).to(torch.uint8), stable=True)
+            order = torch.cat([order, order.new_zeros(bucket)])
+            sel = order[start:start + bucket]
+            fi = sel // d
+            boxes = torch.round(rows.reshape(-1, rows.shape[-1])[sel][:, :4])
+            padded = I.pad_to_aspect(boxes, res_h / res_w, clamp_hw=clamp_hw)
+            crops = I.crop_resize_pil(
+                frames_rgb, fi, padded, (res_h, res_w),
+                valid_boxes=None if clamp_hw is not None else boxes)
+            hm, pts = _pose_tail(model, crops, padded)
+            return total, counts, hm, padded, pts
+
+        self._gather_runs[key] = run
+        return run
+
+    def _check_people_cap(self, max_people: int) -> None:
+        det_cap = getattr(self.detector, 'max_detections', max_people)
+        if max_people > det_cap:
+            raise ValueError(
+                f"max_people={max_people} exceeds the detector's "
+                f'max_detections={det_cap} — the detector can never fill '
+                f'those slots; construct SimpleHRNet('
+                f'yolo_max_detections={max_people}) or lower max_people')
+
+    def _fused_frame(self, in_hw: Tuple[int, int], max_people: int
+                     ) -> Callable:
+        """One frame's fused runner (JAX ``_get_fused_frame``): the
+        ``n_frames=1`` view of ``_fused_frames``, taking one (H, W, 3) RGB
+        frame and returning that frame's rows."""
+        key = (in_hw, max_people)
+        if key in self._fused_runs:
+            return self._fused_runs[key]
+        self._fused_frames(in_hw, max_people, 1)  # built (and checked) now
+
+        def run(frame_rgb: torch.Tensor):
+            valid, boxes, hm, pts = self._fused_frames(
+                in_hw, max_people, 1)(frame_rgb[None])
+            return valid[0], boxes[0], hm[0], pts[0]
+
+        self._fused_runs[key] = run
+        return run
+
+    def _fused_frames(self, in_hw: Tuple[int, int], max_people: int,
+                      n_frames: int) -> Callable:
+        """The fixed-slot runner of ``n_frames`` frames (JAX
+        ``_get_fused_frames``): detect, then ``max_people`` static crop
+        slots a frame (the detector's score-ordered rows, masked by
+        validity; boxes aspect-padded without clamping, PIL-exact crops of
+        the real pixels), pose and decode, in one dispatch.
+        ``run(frames_rgb)`` takes (F, H, W, 3) RGB frames on the device and
+        returns (valid, padded boxes, heatmaps, keypoints) shaped
+        (F, max_people, ...)."""
+        key = (in_hw, max_people, n_frames)
+        if key in self._fused_runs:
+            return self._fused_runs[key]
+        self._check_people_cap(max_people)
+        detector, model = self.detector, self.model
+        res_h, res_w = self.resolution
+        shp = (n_frames, max_people)
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor):
+            rows, valid = detector.detect_padded(frames_rgb)
+            rows = rows[:, :max_people]
+            valid = valid[:, :max_people]
+            boxes = torch.round(rows[..., :4]).reshape(-1, 4)
+            padded = I.pad_to_aspect(boxes, res_h / res_w)
+            fi = torch.arange(n_frames * max_people,
+                              device=frames_rgb.device) // max_people
+            crops = I.crop_resize_pil(frames_rgb, fi, padded, (res_h, res_w),
+                                      valid_boxes=boxes)
+            hm, pts = _pose_tail(model, crops, padded)
+            return (valid, padded.reshape(*shp, 4),
+                    hm.reshape(*shp, *hm.shape[1:]),
+                    pts.reshape(*shp, *pts.shape[1:]))
+
+        self._fused_runs[key] = run
+        return run
+
+    def _detect_rows(self, in_hw: Tuple[int, int], n_frames: int,
+                     max_people: int) -> Callable:
+        """Detect-only runner of the compact stream (JAX
+        ``_get_detect_rows``): the score-ordered rows, validity and
+        per-frame counts, truncated to ``max_people`` a frame exactly as
+        ``_fused_frames`` truncates them, so the compaction finds the
+        people the fixed-slot stream would."""
+        key = ('rows', in_hw, n_frames, max_people)
+        if key in self._fused_runs:
+            return self._fused_runs[key]
+        self._check_people_cap(max_people)
+        detector = self.detector
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor):
+            rows, valid = detector.detect_padded(frames_rgb)
+            rows = rows[:, :max_people]
+            valid = valid[:, :max_people]
+            return rows, valid, valid.sum(dim=1)
+
+        self._fused_runs[key] = run
+        return run
+
+    def _detect_counts(self, in_hw: Tuple[int, int], n_frames: int
+                       ) -> Callable:
+        """Rung 0 of the adaptive ladder (JAX ``_get_detect_counts``): a
+        detect-only runner returning the per-frame count of EVERY valid
+        detector row — no crop slots, no pose batch. Cached under slot
+        key 0, as in the JAX facade."""
+        key = (in_hw, 0, n_frames)
+        if key in self._fused_runs:
+            return self._fused_runs[key]
+        detector = self.detector
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor):
+            return detector.detect_padded(frames_rgb)[1].sum(dim=1)
+
+        self._fused_runs[key] = run
+        return run
 
     def _run_gathered(self, frames_rgb: torch.Tensor, rows: torch.Tensor,
                       valid: torch.Tensor, clamp_hw: Optional[tuple]):
         """All detections through the gather pipeline. The first window
         uses an optimistic bucket (2 people per frame) and returns the total
-        count; follow-up windows cover the rest. Heatmaps come back to the
-        host only when ``return_heatmaps`` asks for them (else None)."""
-        n_frames = frames_rgb.shape[0]
-        bucket0 = _buckets(2 * n_frames, self.max_batch_size)
-        total_d, counts_d, hm, pboxes, pts = self._gather_crop(
-            bucket0, frames_rgb, rows, valid, 0, clamp_hw)
-        total = int(total_d)  # first host sync: the first pose batch is done
-        counts = counts_d.cpu().numpy()
-        take = min(bucket0, total)
-        hm_l, box_l, pts_l = [hm[:take]], [pboxes[:take]], [pts[:take]]
-        start = take
+        count; follow-up windows cover the rest (``_gathered``)."""
+        bucket0 = _buckets(2 * frames_rgb.shape[0], self.max_batch_size)
+        first = self._gather_crop(bucket0, clamp_hw)(frames_rgb, rows, valid,
+                                                     0)
+        total = int(first[0])  # first host sync: the first pose batch is done
+        return (first[1].cpu().numpy(),) + self._gathered(
+            frames_rgb, rows, valid, clamp_hw, total, (bucket0, first))
+
+    def _gathered(self, frames_rgb: torch.Tensor, rows: torch.Tensor,
+                  valid: torch.Tensor, clamp_hw: Optional[tuple], total: int,
+                  first: Optional[tuple] = None):
+        """Heatmaps, boxes and keypoints of the first ``total`` compacted
+        people on the host (see ``_host``): the slots of the launch
+        ``first`` — (its bucket, its outputs), or None — then exact
+        follow-up launches of ``_gather_crop`` for the rest."""
+        parts, start = [], 0
+        if first is not None:
+            start = min(first[0], total)
+            parts.append((first[1], start))
         while start < total:
             b = _buckets(total - start, self.max_batch_size)
-            _, _, hm, pboxes, pts = self._gather_crop(
-                b, frames_rgb, rows, valid, start, clamp_hw)
-            take = min(b, total - start)
-            hm_l.append(hm[:take])
-            box_l.append(pboxes[:take])
-            pts_l.append(pts[:take])
-            start += take
-        hm_all = torch.cat(hm_l).cpu().numpy() if self.return_heatmaps \
-            else None
-        return (counts, hm_all, torch.cat(box_l).cpu().numpy(),
-                torch.cat(pts_l).cpu().numpy())
+            out = self._gather_crop(b, clamp_hw)(frames_rgb, rows, valid,
+                                                 start)
+            parts.append((out, min(b, total - start)))
+            start += parts[-1][1]
+        _, boxes, hm, pts = self._host(
+            None, *([out[i][:take] for out, take in parts] for i in (3, 2, 4)))
+        return hm, boxes, pts
 
     def _upload(self, frames_bgr: np.ndarray) -> torch.Tensor:
-        """One upload of the uint8 frames; BGR -> RGB on the device."""
-        frames = torch.from_numpy(np.ascontiguousarray(frames_bgr))
-        return frames.to(self.device).flip(-1)
+        """One upload of uint8 BGR frames (any leading shape), from pinned
+        memory with no stream synchronization; BGR -> RGB on the device."""
+        return host_to_device(frames_bgr, self.device).flip(-1)
+
+    # ------------------------------------------------------------------
+    # per-frame results
+    # ------------------------------------------------------------------
+
+    def _host(self, valid, boxes, hm, pts):
+        """Device outputs on the host, one copy each (a list of tensors is
+        concatenated first; ``valid`` may be None); heatmaps only when
+        ``return_heatmaps`` asks for them (else None)."""
+        def get(t):
+            if t is None:
+                return None
+            return (torch.cat(t) if isinstance(t, list) else t).cpu().numpy()
+        return (get(valid), get(boxes),
+                get(hm) if self.return_heatmaps else None, get(pts))
+
+    def _finish_empty(self):
+        """The per-frame result of a frame with zero people — what
+        ``_finish_fused`` gives when no slot is valid, built on the host so
+        rung-0 (detect-only) launches need no pose outputs."""
+        res = []
+        if self.return_heatmaps:
+            res.append(np.zeros((0, self.nof_joints, self.resolution[0] // 4,
+                                 self.resolution[1] // 4), np.float32))
+        if self.return_bounding_boxes:
+            res.append(np.zeros((0, 4), np.int32))
+        res.append(np.zeros((0, self.nof_joints, 3), np.float32))
+        return res if len(res) > 1 else res[0]
+
+    def _finish_fused(self, entry):
+        """One frame's fixed-slot outputs (host arrays from ``_host``) as
+        the per-frame ``predict`` result: the valid slots come first."""
+        valid, boxes, hm, pts = entry
+        n = int(valid.sum())
+        return self._finish_slice(None if hm is None else hm[:n], boxes[:n],
+                                  pts[:n])
+
+    def _finish_rows(self, host, n_real: int):
+        """The first ``n_real`` frames of a chunk's host outputs (see
+        ``_host``), each as ``_finish_fused`` gives it."""
+        valid, boxes, hm, pts = host
+        return [self._finish_fused((valid[i], boxes[i],
+                                    None if hm is None else hm[i], pts[i]))
+                for i in range(n_real)]
+
+    def _finish_slice(self, hm, boxes, pts):
+        """Per-frame result from compacted-order slices (the cross-frame
+        analogue of ``_finish_fused``)."""
+        res = []
+        if self.return_heatmaps:
+            res.append(np.transpose(hm, (0, 3, 1, 2)))
+        if self.return_bounding_boxes:
+            res.append(boxes.astype(np.int32))
+        res.append(pts.astype(np.float32))
+        return res if len(res) > 1 else res[0]
+
+    # ------------------------------------------------------------------
+    # stream engines
+    # ------------------------------------------------------------------
+
+    def _pipeline(self, frames, batch_frames: int, prefetch: int,
+                  dispatch: Callable, resolve: Callable):
+        """The dispatch-ahead loop of every stream mode. Each chunk of
+        ``_chunks(frames, batch_frames)`` is uploaded and handed to
+        ``dispatch(frames_rgb, n_real)``, which launches it and returns an
+        entry; at most ``prefetch`` entries wait, and ``resolve(entry)``
+        returns the launch's per-frame results, yielded in order."""
+        pending = collections.deque()
+        for stack, n_real in _chunks(frames, batch_frames):
+            pending.append(dispatch(self._upload(stack), n_real))
+            while len(pending) > prefetch:
+                yield from resolve(pending.popleft())
+        while pending:
+            yield from resolve(pending.popleft())
+
+    def predict_stream(self, frames, max_people: int = 16,
+                       prefetch: int = 2, batch_frames: int = 1,
+                       adaptive_slots: bool = False, slot_window: int = 16,
+                       compact_crops: bool = False):
+        """Pipelined video inference: yields each frame's ``predict``
+        result (keypoints, preceded by heatmaps and boxes when asked for),
+        in order, for at most ``max_people`` people a frame.
+
+        Launches are dispatched ``prefetch`` ahead of result consumption;
+        a dispatch (upload + runner) makes no host synchronization, so the
+        card computes frames i+1..i+prefetch while the host reads frame i.
+
+        ``batch_frames > 1`` runs ``batch_frames`` frames a launch
+        (``_fused_frames``): a pose batch of batch_frames * max_people
+        crops, at the cost of batching latency. A trailing partial chunk is
+        padded with its last frame, a change of frame shape flushes the
+        chunk, and only real frames are yielded.
+
+        ``adaptive_slots=True`` treats ``max_people`` as a cap and runs
+        each launch at the smallest rung of ``_slot_ladder(max_people)``
+        that recent frames fit in: a saturated launch (every slot valid
+        below the cap) is re-run a rung up, the rung steps down after
+        ``slot_window`` launches fit strictly below it, and after a window
+        of empty frames the stream runs the detector alone (rung 0) until
+        the first detection. Results equal the fixed-slot stream's.
+
+        ``compact_crops=True`` (needs ``batch_frames > 1``) sizes the pose
+        batch to the window's total detected people: a detect-only launch,
+        then the frame-major compaction of ``_gather_crop`` in power-of-two
+        buckets, the first sized from the previous window's total, with an
+        idle tier after an all-empty window. Results equal the fixed-slot
+        stream's; combining it with ``adaptive_slots`` is an error.
+        """
+        if compact_crops:
+            if batch_frames <= 1:
+                raise ValueError('compact_crops=True requires multiperson '
+                                 'detection and batch_frames > 1')
+            if adaptive_slots:
+                raise ValueError('compact_crops already adapts the pose '
+                                 'batch to the scene; drop adaptive_slots')
+            yield from self._stream_compact(frames, max_people, prefetch,
+                                            batch_frames)
+            return
+        if adaptive_slots:
+            yield from self._stream_adaptive(frames, max_people, prefetch,
+                                             batch_frames, slot_window)
+            return
+
+        if batch_frames <= 1:
+            def dispatch(frames_rgb, _n_real):
+                return self._fused_frame(frames_rgb.shape[1:3],
+                                         max_people)(frames_rgb[0])
+
+            def resolve(out):
+                return [self._finish_fused(self._host(*out))]
+        else:
+            def dispatch(frames_rgb, n_real):
+                return self._fused_frames(frames_rgb.shape[1:3], max_people,
+                                          batch_frames)(frames_rgb), n_real
+
+            def resolve(entry):
+                out, n_real = entry
+                return self._finish_rows(self._host(*out), n_real)
+
+        yield from self._pipeline(frames, batch_frames, prefetch, dispatch,
+                                  resolve)
+
+    def _stream_adaptive(self, frames, cap: int, prefetch: int,
+                         batch_frames: int, slot_window: int):
+        """predict_stream's adaptive-slot engine (see its docstring).
+
+        Both the per-frame and the chunked mode keep the fixed-slot
+        dispatch-ahead; the only synchronous extra work is re-running a
+        SATURATED launch (all slots valid below the cap) at a bigger rung,
+        which hysteresis makes rare. Escalation decisions are per launch
+        (the max count over a chunk's frames) and loop until the launch is
+        unsaturated or at the cap, so results equal the fixed-slot
+        stream's. A re-run takes the frames already on the device."""
+        ctl = _SlotController(cap, slot_window)
+        per_frame = batch_frames <= 1
+
+        def launch(frames_rgb, slots):
+            in_hw = frames_rgb.shape[1:3]
+            if slots == 0:
+                return self._detect_counts(in_hw, len(frames_rgb))(frames_rgb)
+            if per_frame:
+                out = self._fused_frame(in_hw, slots)(frames_rgb[0])
+                return tuple(t[None] for t in out)
+            return self._fused_frames(in_hw, slots, batch_frames)(frames_rgb)
+
+        def dispatch(frames_rgb, n_real):
+            return launch(frames_rgb, ctl.slots), ctl.slots, frames_rgb, n_real
+
+        def resolve(entry):
+            out, slots, frames_rgb, n_real = entry
+            if slots == 0:
+                # detect-only rung: escalate straight to the first rung that
+                # fits the TRUE count (the counts runner sees every detector
+                # row, not a slot truncation), so one re-run lands where the
+                # saturation cascade would
+                m = int(out.max())
+                if m == 0:
+                    ctl.observe(0)
+                    return [self._finish_empty() for _ in range(n_real)]
+                slots = ctl.escalate(min(m, cap - 1))
+                out = launch(frames_rgb, slots)
+            host = self._host(*out)
+            m = int(host[0].sum(axis=1).max())
+            while m >= slots and slots < cap:
+                slots = ctl.escalate(slots)
+                host = self._host(*launch(frames_rgb, slots))
+                m = int(host[0].sum(axis=1).max())
+            ctl.observe(m)
+            return self._finish_rows(host, n_real)
+
+        yield from self._pipeline(frames, batch_frames, prefetch, dispatch,
+                                  resolve)
+
+    def _stream_compact(self, frames, max_people: int, prefetch: int,
+                        batch_frames: int):
+        """predict_stream's cross-frame crop-compaction engine.
+
+        Each window runs two launches: ``_detect_rows`` (rows stay on the
+        device, truncated to ``max_people`` like the fixed-slot runner),
+        then ``_gather_crop``'s frame-major compaction with the pose batch
+        sized to a power-of-two bucket of the window's detected people. The
+        first pose launch is sized optimistically from the previous
+        window's total, so the window's one host read comes after the pose
+        launch; shortfalls run exact follow-up launches. A window after an
+        all-empty window runs the detector alone (the idle tier) and sizes
+        its wake-up pose launch exactly from the read counts. Padded
+        duplicate frames sort after every real frame's people and are
+        never consumed."""
+        # previous window's total people — sizes the next optimistic pose
+        # launch; 0 = idle (detect-only until people reappear)
+        prior = [2 * batch_frames]
+
+        def dispatch(frames_rgb, n_real):
+            rows, valid, counts_d = self._detect_rows(
+                frames_rgb.shape[1:3], batch_frames, max_people)(frames_rgb)
+            first = None
+            if prior[0] > 0:
+                bucket0 = _buckets(prior[0], self.max_batch_size)
+                first = (bucket0, self._gather_crop(bucket0)(
+                    frames_rgb, rows, valid, 0))
+            return frames_rgb, rows, valid, counts_d, first, n_real
+
+        def resolve(entry):
+            frames_rgb, rows, valid, counts_d, first, n_real = entry
+            counts = counts_d.cpu().numpy()[:n_real]  # the window's host read
+            needed = int(counts.sum())
+            prior[0] = needed
+            if first is None and needed == 0:
+                return [self._finish_empty() for _ in range(n_real)]
+            hm, boxes, pts = self._gathered(frames_rgb, rows, valid, None,
+                                            needed, first)
+            ends = np.cumsum(counts)
+            return [self._finish_slice(None if hm is None else hm[e - n:e],
+                                       boxes[e - n:e], pts[e - n:e])
+                    for n, e in zip(counts, ends)]
+
+        yield from self._pipeline(frames, batch_frames, prefetch, dispatch,
+                                  resolve)
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    def warmup(self, frame_hw: Tuple[int, int], batch_sizes=(1,),
+               stream_max_people=None, stream_batch_frames=(1,)) -> dict:
+        """Make first requests cost execution time only, for one frame
+        geometry (the JAX facade's ``warmup``, same arguments).
+
+        Builds the CUDA kernels if they are not built yet, then runs each
+        listed frame-batch size through ``predict`` on a zero frame and,
+        with ``stream_max_people`` (an int, an iterable of ints,
+        ``('adaptive', cap)`` for every rung the adaptive stream can visit,
+        or ``('compact', cap)`` for the compact stream's detect-rows runner
+        and every power-of-two people bucket up to a full window), every
+        ``predict_stream`` runner once on zero frames, for each entry of
+        ``stream_batch_frames``: cuDNN's algorithm choices and the caching
+        allocators are warm afterwards.
+
+        Returns {'single': n, 'gather': n, 'fused': n}, the sizes of the
+        runner caches ('single' is 0: the single-person path, which has
+        that cache in the JAX facade, is not ported).
+        """
+        if self.device.type == 'cuda':
+            from simple_hrnet_tpu_torch.ops.cuda import build
+            build.build_all()
+        h, w = int(frame_hw[0]), int(frame_hw[1])
+
+        def zeros(n):
+            return self._upload(np.zeros((n, h, w, 3), np.uint8))
+
+        for b in batch_sizes:
+            dummy = np.zeros((b, h, w, 3), np.uint8)
+            self.predict(dummy[0] if b == 1 else dummy)
+        if stream_max_people is not None:
+            compact_cap = None
+            if isinstance(stream_max_people, int):
+                slot_counts = [stream_max_people]
+            elif (len(stream_max_people) == 2
+                  and stream_max_people[0] == 'adaptive'):
+                slot_counts = _slot_ladder(int(stream_max_people[1]))
+            elif (len(stream_max_people) == 2
+                  and stream_max_people[0] == 'compact'):
+                compact_cap = int(stream_max_people[1])
+                slot_counts = []
+            else:
+                slot_counts = [int(s) for s in stream_max_people]
+            if compact_cap is not None:
+                for nf in stream_batch_frames:
+                    nf = max(int(nf), 1)
+                    frames_rgb = zeros(nf)
+                    rows, valid, _ = self._detect_rows(
+                        (h, w), nf, compact_cap)(frames_rgb)
+                    # every power-of-two people bucket a window can need
+                    b = _buckets(1, self.max_batch_size)
+                    seen = set()
+                    while True:
+                        if b not in seen:
+                            seen.add(b)
+                            self._gather_crop(b)(frames_rgb, rows, valid, 0)
+                        if b >= _buckets(compact_cap * nf,
+                                         self.max_batch_size):
+                            break
+                        b = _buckets(b + 1, self.max_batch_size)
+            for slots in slot_counts:
+                for nf in stream_batch_frames:
+                    if slots == 0:
+                        # the adaptive ladder's detect-only idle rung
+                        self._detect_counts((h, w), max(nf, 1))(
+                            zeros(max(nf, 1)))
+                    elif nf <= 1:
+                        self._fused_frame((h, w), slots)(zeros(1)[0])
+                    else:
+                        self._fused_frames((h, w), slots, nf)(zeros(nf))
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return {'single': 0, 'gather': len(self._gather_runs),
+                'fused': len(self._fused_runs)}
 
     def predict(self, image: np.ndarray):
         """Estimate poses on one HWC BGR frame or an NHWC stack.

@@ -17,7 +17,8 @@ darknet flatten order (anchor, gy, gx).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.models.layers import init_conv_
+from simple_hrnet_tpu_torch.utils.device import host_to_device
 
 Block = Dict[str, Any]
 
@@ -174,6 +176,13 @@ class DarknetConv(nn.Module):
         self.bn = None
 
 
+@functools.lru_cache(maxsize=None)
+def _anchors_on(anchors: Tuple[Tuple[float, ...], ...],
+                device: torch.device) -> torch.Tensor:
+    """A YOLO head's (w, h) anchors as f32 on ``device``, copied once."""
+    return host_to_device(np.asarray(anchors, np.float32), device)
+
+
 def _yolo_decode(x: torch.Tensor, blk: Block, img_size: int) -> torch.Tensor:
     """One YOLO head: (N, A*(5+C), g, g) NCHW -> (N, A*g*g, 5+C), boxes
     (cx, cy, w, h) in input pixels, sigmoid objectness and class scores,
@@ -182,8 +191,8 @@ def _yolo_decode(x: torch.Tensor, blk: Block, img_size: int) -> torch.Tensor:
     n, _, gh, gw = x.shape
     n_cls = blk['classes']
     na = len(blk['mask'])
-    anchors = torch.tensor([blk['anchors'][m] for m in blk['mask']],
-                           dtype=torch.float32, device=x.device)
+    anchors = _anchors_on(
+        tuple(tuple(blk['anchors'][m]) for m in blk['mask']), x.device)
     stride = img_size / gw
     x = x.float().reshape(n, na, 5 + n_cls, gh, gw).permute(0, 1, 3, 4, 2)
     cy = torch.arange(gh, dtype=torch.float32, device=x.device)[:, None]

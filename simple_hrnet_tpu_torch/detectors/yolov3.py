@@ -10,6 +10,7 @@ reference's row format (x1, y1, x2, y2, conf, cls_conf, cls_pred).
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -22,7 +23,7 @@ from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import image as I
 from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
-from simple_hrnet_tpu_torch.utils.device import resolve_device
+from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
 
 # COCO class names index 0 == person (the default filter)
 PERSON_CLASS_ID = 0
@@ -64,6 +65,13 @@ def scale_coords_params(img_size: int, shape_hw: Tuple[int, int]
     pad_x = (img_size - shape_hw[1] * gain) / 2
     pad_y = (img_size - shape_hw[0] * gain) / 2
     return gain, pad_x, pad_y
+
+
+@functools.lru_cache(maxsize=64)
+def _pad_on(pad_x: float, pad_y: float, device: torch.device) -> torch.Tensor:
+    """The letterbox pad (x, y, x, y) as f32 on ``device``, copied once."""
+    return host_to_device(np.asarray([pad_x, pad_y, pad_x, pad_y],
+                                     np.float32), device)
 
 
 class YOLOv3:
@@ -181,8 +189,7 @@ class YOLOv3:
             torch.gather(top_cls_conf, 1, keep)[..., None],
             torch.gather(top_cls, 1, keep).float()[..., None]], dim=-1)
         gain, pad_x, pad_y = scale_coords_params(img_size, in_hw)
-        pad = torch.tensor([pad_x, pad_y, pad_x, pad_y], dtype=torch.float32,
-                           device=rows.device)
+        pad = _pad_on(pad_x, pad_y, rows.device)
         rows[..., :4] = torch.clamp((rows[..., :4] - pad) / gain, min=0.0)
         return rows, keep_valid
 

@@ -12,10 +12,13 @@ PyTorch's default); the PIL crop runs in f64, where it is exact (see
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from simple_hrnet_tpu_torch.utils.device import host_to_device
 
 # ImageNet statistics (reference SimpleHRNet.py:152, 171); copies of the
 # JAX package's constants, built with the same f32 roundings.
@@ -30,10 +33,16 @@ MEAN255 = (IMAGENET_MEAN * np.float32(255.0)).astype(np.float32)
 INV255_STD = (INV255 * IMAGENET_INV_STD).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _normalize_constants(device: torch.device
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MEAN255 and INV255_STD on ``device``, copied there once."""
+    return host_to_device(MEAN255, device), host_to_device(INV255_STD, device)
+
+
 def normalize(x: torch.Tensor) -> torch.Tensor:
     """[0, 255] RGB (..., 3) -> ImageNet-normalized float32."""
-    mean = torch.from_numpy(MEAN255).to(x.device)
-    inv_std = torch.from_numpy(INV255_STD).to(x.device)
+    mean, inv_std = _normalize_constants(x.device)
     return (x.float() - mean) * inv_std
 
 
@@ -51,13 +60,19 @@ def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_weights_on(in_size: int, out_size: int,
+                       device: torch.device) -> torch.Tensor:
+    """``_linear_weights`` on ``device``, copied there once per shape."""
+    return host_to_device(_linear_weights(in_size, out_size), device)
+
+
 def resize_linear(image: torch.Tensor, out_hw: Tuple[int, int]
                   ) -> torch.Tensor:
     """cv2.INTER_LINEAR-equivalent resize of (..., H, W, C) as two dense
     matmuls, in f32."""
-    dev = image.device
-    wh = torch.from_numpy(_linear_weights(image.shape[-3], out_hw[0])).to(dev)
-    ww = torch.from_numpy(_linear_weights(image.shape[-2], out_hw[1])).to(dev)
+    wh = _linear_weights_on(image.shape[-3], out_hw[0], image.device)
+    ww = _linear_weights_on(image.shape[-2], out_hw[1], image.device)
     x = torch.einsum('oh,...hwc->...owc', wh, image.float())
     return torch.einsum('pw,...hwc->...hpc', ww, x)
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,16 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     elif dev.type != 'cpu':
         raise ValueError(f'unsupported device {device!r} (cuda or cpu)')
     return dev
+
+
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, with no stream
+    synchronization: on a CUDA device it is staged in pinned memory and
+    copied with ``non_blocking=True`` (PyTorch's caching host allocator
+    keeps the pinned block until the copy is done), where a copy from
+    pageable memory would end in a stream synchronize. On the CPU it
+    shares the array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != 'cuda':
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

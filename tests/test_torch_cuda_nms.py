@@ -71,11 +71,12 @@ def test_nms_kernel_matches_plain(dev):
 
 @pytest.mark.cuda
 def test_nms_kernel_sizes_and_batches(dev):
-    """N around the 32-candidate word and chunk edges and at the largest
-    the kernel takes, at batches 1 and 8, detector-sorted scores."""
+    """N around the 32-candidate word and chunk edges, the detector's 256
+    and the largest the kernel takes, at batches 1, 4 (the chunked
+    stream's detect) and 8, detector-sorted scores."""
     rng = np.random.default_rng(31)
-    for n in (1, 31, 33, 1000, 1024):
-        for bsz in (1, 8):
+    for n in (1, 31, 33, 256, 1000, 1024):
+        for bsz in (1, 4, 8):
             boxes, scores = _inputs(dev, rng, bsz, n, levels=64)
             scores = torch.sort(scores, dim=1, descending=True,
                                 stable=True).values
