@@ -56,7 +56,20 @@ Phases (any failure exits nonzero):
      batches, guarded dispatch, people and finite keypoints), frames/s
      from five timed runs (median, min, max) beside ``predict`` frame by
      frame and on stacks of 4, and device busy time and idle share over
-     the first 32 frames (one profiled run against three timed ones).
+     the first 32 frames (one profiled run against three timed ones);
+  6. the SimpleBaselines path: ``SimpleHRNet(50, 17, <.pth>,
+     model_name='PoseResNet', resolution=(256, 192), yolo_version='v5',
+     yolo_model_def=<.pt>)`` from a seeded random PoseResNet-50 ``.pth``
+     and a seeded yolov5m ``.pt`` (the port's own network pickled as
+     ultralytics pickles its models, read back through the stub loader;
+     ``tests/torch_v5_weights.py``). In f32 on one 480x640 frame it is held
+     against the same facade on the CPU (detector rows, heatmaps, and the
+     keypoints whose heatmap peak is clear of its runner-up); in bf16 and
+     int8 (PoseResNet's policy convs in int8, YOLOv5 bf16) ``predict`` runs
+     on 1 and 8 frames, timed and profiled, with K1 launched once a detect
+     chunk and no other kernel; in bf16 after ``warmup`` one chunked
+     ``predict_stream`` (4 frames a launch) runs as phase 5 runs its modes,
+     dispatch guarded, and is timed over 128 frames.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -929,7 +942,7 @@ def run_main_path(dev, path, pth, weights, counters):
         'detector_quantized': model.detector.quantized,
         'build_s': build_s, 'predict_ms_single': t['single'] * 1e3,
         'predict_ms_stack8': t['stack8'] * 1e3}
-    busy_ms, top, port = profile_predict(name, model, frames)
+    busy_ms, top, port = profile_predict(f'phase 4 [{name}]', model, frames)
     idle = 1.0 - busy_ms / (t['stack8'] * 1e3)
     print(f'phase 4 [{name}]: predict(8 frames) host {t["stack8"] * 1e3:.1f} '
           f'ms, device busy {busy_ms:.2f} ms, idle share {100 * idle:.1f}%',
@@ -983,16 +996,17 @@ def device_profile(fn):
     return sum(r[0] for r in rows), rows, port
 
 
-def profile_predict(name, model, frames):
-    """Device time by kernel over one ``predict`` of the 8-frame stack.
-    Returns the summed device time, the ten largest entries and each port
-    kernel's [ms, launches] summed over all its instantiations."""
+def profile_predict(label, model, frames):
+    """Device time by kernel over one ``predict`` of the 8-frame stack,
+    printed under ``label``. Returns the summed device time, the ten
+    largest entries and each port kernel's [ms, launches] summed over all
+    its instantiations."""
     busy, rows, port = device_profile(lambda: model.predict(frames))
-    print(f'phase 4 [{name}]: profile of predict(8 frames): device busy '
+    print(f'{label}: profile of predict(8 frames): device busy '
           f'{busy:.2f} ms; by kernel (ms, calls, name):', flush=True)
     for ms, n, key in rows[:15]:
         print(f'    {ms:9.3f} {n:6d}  {key[:110]}')
-    print(f'phase 4 [{name}]: port kernels, all instantiations (ms, '
+    print(f'{label}: port kernels, all instantiations (ms, '
           f'launches): ' + '; '.join(f'{k} {ms:.3f} ms, {n}'
                                      for k, (ms, n) in port.items()),
           flush=True)
@@ -1036,15 +1050,18 @@ STREAM_TIME_RUNS = 5
 STREAM_PROFILE_FRAMES = 32
 
 
-def drive_stream(model, frames, kw, counters):
+def drive_stream(model, frames, kw, counters, per_pose=None,
+                 batches=POSE_BATCHES):
     """One ``predict_stream`` run with every kernel's count set to 0 just
     before and read just after, every upload and runner call in sync-debug
     mode 'error' (``utils/dispatch.strict_dispatch``). Returns the results
     and the run's record: launches, pose batches, detector calls, guarded
-    calls. Fails if the pose model saw a batch phase 2 did not check, or if
-    a kernel ran other than once a detect (the real detector), 8 times a
-    pose forward (the chain) and once a stage module (the fuse)."""
-    from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
+    calls. Fails if the pose model saw a batch outside ``batches`` (the
+    batches phase 2 checked its kernels at; None: a pose model that runs
+    no port kernel), or if a kernel ran other than once a detect (K1, for
+    a real detector) and ``per_pose`` times a pose forward (default
+    HRNet-W48's: the chain and the fuse 8 times each)."""
+    from simple_hrnet_tpu_torch.detectors.yolov3 import PersonDetector
     from simple_hrnet_tpu_torch.utils.dispatch import strict_dispatch
 
     seen, detects = [], []
@@ -1064,14 +1081,15 @@ def drive_stream(model, frames, kw, counters):
     finally:
         hook.remove()
         del det.detect_padded
-    if not set(seen) <= set(POSE_BATCHES):
+    if batches is not None and not set(seen) <= set(batches):
         raise AssertionError(f'stream {kw}: the pose model ran at batches '
                              f'{sorted(set(seen))}; phase 2 checked the '
-                             f'kernels at {POSE_BATCHES}')
-    real = isinstance(det, YOLOv3)
-    want = {'nms': len(detects) if real else 0,
-            'basic_chain': 8 * len(seen), 'fuse_up': 8 * len(seen),
-            'wino_chain': 0, 'int8_chain': 0}
+                             f'kernels at {batches}')
+    real = isinstance(det, PersonDetector)
+    if per_pose is None:
+        per_pose = {'basic_chain': 8, 'fuse_up': 8}
+    want = {k: per_pose.get(k, 0) * len(seen) for k in counters}
+    want['nms'] = len(detects) if real else 0
     if launches != want or (real and not detects):
         raise AssertionError(f'stream {kw}: launches {launches} over '
                              f'{len(detects)} detects and {len(seen)} pose '
@@ -1323,6 +1341,216 @@ def run_stream_phase(dev, pth, weights, counters):
                           timing=timing)
 
 
+# phase 6: PoseResNet-50 256x192 with YOLOv5m-640, the SimpleBaselines
+# path. Card against CPU in f32 (TF32 off), summation order only: detector
+# boxes within V5_BOX_TOL px and scores within 1e-5, heatmaps within
+# V5_HM_TOL of max |heatmap| (phase 3's f32 limit through ~60 layers);
+# a keypoint is compared only where its heatmap peak clears the runner-up
+# by 4x the measured heatmap error (elsewhere the argmax is a coin flip).
+V5_RES = (256, 192)
+V5_BOX_TOL = 1e-2
+V5_HM_TOL = 1e-3
+V5_STREAM = dict(max_people=16, batch_frames=4)
+V5_DTYPES = (('bf16', 'bfloat16', (5, 3)), ('int8', 'int8', (5, 3)))
+# ResNet-50's convs under the int8 policy: the 3x3 convs of layer1 and
+# layer2
+V5_INT8_CONVS = 7
+
+
+def write_v5_weights(tmp):
+    """A seeded random PoseResNet-50 .pth and a seeded yolov5m .pt (the
+    port's network pickled as {'model': net}, shaped by
+    ``tests/torch_v5_weights.py`` so that the random detector finds
+    people and scores them apart)."""
+    from simple_hrnet_tpu_torch.models import poseresnet
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tests'))
+    from torch_v5_weights import write_yolov5_pt
+
+    pth = os.path.join(tmp, 'pose_resnet_50_256x192_seed0.pth')
+    torch.save(poseresnet.init(50, 17, seed=0).state_dict(), pth)
+    # person logit +1.5 (the helper's default +3 is for yolov5n at 128):
+    # at 320 on smooth_frames it passes ~10-35 candidates a frame, scores
+    # apart, so that the card and the CPU rank the same ones
+    pt = write_yolov5_pt(os.path.join(tmp, 'yolov5m_seed0.pt'), 'yolov5m',
+                         person_logit=1.5)
+    return pth, pt
+
+
+def v5_facade(pth, pt, dtype=None, device='cuda'):
+    from simple_hrnet_tpu_torch import SimpleHRNet
+    return SimpleHRNet(50, 17, pth, model_name='PoseResNet',
+                       resolution=V5_RES, yolo_version='v5',
+                       yolo_model_def=pt, dtype=dtype, return_heatmaps=True,
+                       return_bounding_boxes=True, device=device)
+
+
+def check_v5_f32(pth, pt, frame):
+    """The f32 facade on the card against the same facade on the CPU (the
+    plain versions, K1's included) on one frame."""
+    card, cpu = v5_facade(pth, pt), v5_facade(pth, pt, device='cpu')
+    rgb = np.ascontiguousarray(frame[None, ..., ::-1])
+    gr, gv = (t.cpu().numpy() for t in card.detector.detect_padded(rgb))
+    cr, cv = (t.numpy() for t in cpu.detector.detect_padded(rgb))
+    people = int(cv.sum())
+    if not np.array_equal(gv, cv) or people == 0:
+        raise AssertionError(f'phase 6: detector validity card '
+                             f'{gv.sum()} against CPU {people} rows')
+    box_err = float(np.abs(gr[gv][:, :4] - cr[cv][:, :4]).max())
+    score_err = float(np.abs(gr[gv][:, 4:6] - cr[cv][:, 4:6]).max())
+    if box_err > V5_BOX_TOL or score_err > 1e-5:
+        raise AssertionError(f'phase 6: detector rows differ: boxes '
+                             f'{box_err} px, scores {score_err}')
+    (hm, bx, pts), (chm, cbx, cpts) = card.predict(frame), cpu.predict(frame)
+    if not np.array_equal(bx, cbx) or \
+            hm.shape != (people, 17, V5_RES[0] // 4, V5_RES[1] // 4):
+        raise AssertionError(f'phase 6: boxes or heatmap shapes differ '
+                             f'({hm.shape}, {chm.shape})')
+    hm_err = float(np.abs(hm - chm).max())
+    top = float(np.abs(chm).max())
+    if not np.isfinite(hm).all() or hm_err > V5_HM_TOL * top:
+        raise AssertionError(f'phase 6: heatmaps differ by {hm_err} '
+                             f'({hm_err / top} of max)')
+    two = np.sort(chm.reshape(people, 17, -1), axis=-1)[..., -2:]
+    clear = (two[..., 1] - two[..., 0]) > 4 * hm_err
+    xy_err = float(np.abs(pts[clear][:, :2] - cpts[clear][:, :2]).max()) \
+        if clear.any() else 0.0
+    conf_err = float(np.abs(pts[..., 2] - cpts[..., 2]).max())
+    if xy_err > 1e-3 or conf_err > V5_HM_TOL * top:
+        raise AssertionError(f'phase 6: keypoints differ: positions '
+                             f'{xy_err} px, confidences {conf_err}')
+    rec = dict(people=people, box_err_px=box_err, score_err=score_err,
+               heatmap_err=hm_err, heatmap_rel_err=hm_err / top,
+               keypoints_compared=int(clear.sum()),
+               keypoints_left_out=int(clear.size - clear.sum()),
+               keypoint_xy_err=xy_err, keypoint_conf_err=conf_err)
+    print(f'phase 6 f32 card vs CPU: YOLOv5m keeps {people} people on the '
+          f'frame (same rows; boxes {box_err:.2e} px, scores '
+          f'{score_err:.2e}); heatmaps {hm_err:.2e} ({hm_err / top:.2e} of '
+          f'max, tol {V5_HM_TOL:.0e}); keypoints {rec["keypoints_compared"]} '
+          f'compared ({xy_err:.2e} px), {rec["keypoints_left_out"]} left out '
+          f'(peak within 4x the heatmap error of its runner-up)',
+          flush=True)
+    return rec
+
+
+def run_v5_predict(name, dtype, reps, pth, pt, frames, counters):
+    """``predict`` on 1 and 8 frames in ``dtype``: K1 once a detect chunk
+    (one chunk: max_batch_size 32) and no other kernel, finite outputs;
+    timed, and the 8-frame call profiled."""
+    model = v5_facade(pth, pt, dtype=dtype)
+    if model.detector.quantized or \
+            model.detector.dtype != torch.bfloat16:
+        raise AssertionError(f'phase 6 [{name}]: YOLOv5 must run bf16')
+    from simple_hrnet_tpu_torch.models.layers import QConv2d
+    n_q = sum(isinstance(m, QConv2d) for m in model.model.modules())
+    if n_q != (V5_INT8_CONVS if dtype == 'int8' else 0):
+        raise AssertionError(f'phase 6 [{name}]: {n_q} int8 convs')
+    launches = {}
+    outs = {}
+    for what, arg in (('single', frames[0]), ('stack8', frames)):
+        for k in counters.values():
+            k.launches = 0
+        outs[what] = model.predict(arg)
+        torch.cuda.synchronize()
+        launches[what] = {k: f.launches for k, f in counters.items()}
+        want = {k: int(k == 'nms') for k in counters}
+        if launches[what] != want:
+            raise AssertionError(f'phase 6 [{name}] {what}: launches '
+                                 f'{launches[what]}; want {want}')
+    hm1, _, pts1 = outs['single']
+    people8 = [p.shape[0] for p in outs['stack8'][2]]
+    if pts1.shape[0] == 0 or not all(np.isfinite(a).all() for a in
+                                     [hm1, pts1, *outs['stack8'][0]]):
+        raise AssertionError(f'phase 6 [{name}]: no people or non-finite '
+                             f'outputs')
+    model.return_heatmaps = model.return_bounding_boxes = False
+    t = {}
+    for what, arg, n in (('single', frames[0], reps[0]),
+                         ('stack8', frames, reps[1])):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            model.predict(arg)
+        t[what] = (time.perf_counter() - t0) / n * 1e3
+    label = f'phase 6 [{name}]'
+    busy, top, port = profile_predict(label, model, frames)
+    idle = 1.0 - busy / t['stack8']
+    print(f'{label}: people {pts1.shape[0]} (1 frame) / {people8} (8 '
+          f'frames); predict 1 frame {t["single"]:.1f} ms, 8 frames '
+          f'{t["stack8"]:.1f} ms ({8e3 / t["stack8"]:.2f} frames/s), device '
+          f'busy {busy:.2f} ms, idle share {100 * idle:.1f}%; K1 launches '
+          f'per predict {launches["single"]["nms"]} (1 frame), '
+          f'{launches["stack8"]["nms"]} (8 frames)', flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(
+        people_single=int(pts1.shape[0]), people_stack8=people8,
+        int8_convs=n_q, predict_ms_single=t['single'],
+        predict_ms_stack8=t['stack8'], stack8_device_busy_ms=busy,
+        stack8_idle_share=idle, stack8_top_device_ms=top,
+        stack8_port_kernels=port, launches_single=launches['single'],
+        launches_stack8=launches['stack8'])
+
+
+def run_v5_stream(pth, pt, counters):
+    """One chunked ``predict_stream`` in bf16 after ``warmup``, on phase 5's
+    frames: checked as phase 5 checks its runs (K1 once a detect, no other
+    kernel, every upload and runner call guarded), then timed over
+    STREAM_TIME_FRAMES frames (median of STREAM_TIME_RUNS, min, max)."""
+    model = v5_facade(pth, pt, dtype='bfloat16')
+    model.return_heatmaps = model.return_bounding_boxes = False
+    model.warmup((480, 640), batch_sizes=(), stream_max_people=16,
+                 stream_batch_frames=(4,))
+    frames = list(smooth_frames(16))
+    out, record = drive_stream(model, frames, V5_STREAM, counters,
+                               per_pose={}, batches=None)
+    people = [o.shape[0] for o in out]
+    if len(out) != 16 or not all(np.isfinite(o).all() for o in out) or \
+            record['launches']['nms'] != 4:
+        raise AssertionError(f'phase 6 stream: {len(out)} frames, people '
+                             f'{people}, launches {record["launches"]}')
+    frames = frames * (STREAM_TIME_FRAMES // 16)
+    secs = []
+    for _ in range(STREAM_TIME_RUNS):
+        t0 = time.perf_counter()
+        list(model.predict_stream(frames, **V5_STREAM))
+        secs.append(time.perf_counter() - t0)
+    fps = sorted(len(frames) / s for s in secs)
+    med = len(frames) / float(np.median(secs))
+    print(f'phase 6 stream (bf16, 4 frames a launch): people a frame '
+          f'{people}; launches {record["launches"]} over '
+          f'{record["detects"]} detects; guarded dispatch calls '
+          f'{record["guarded_calls"]}; {len(frames)} frames: median '
+          f'{med:.2f} frames/s (min {fps[0]:.2f}, max {fps[-1]:.2f})',
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return record, dict(people=people, frames=len(frames),
+                        frames_per_s=fps, frames_per_s_median=med,
+                        host_ms=[1e3 * s for s in secs],
+                        launches=record['launches'],
+                        guarded_calls=record['guarded_calls'])
+
+
+def run_v5_phase(tmp, counters):
+    """Phase 6: the PoseResNet-50 + YOLOv5m path (see the module
+    docstring). Returns each run's launches and the phase's record."""
+    t0 = time.perf_counter()
+    pth, pt = write_v5_weights(tmp)
+    frames = smooth_frames(8)
+    summary = {'f32_card_vs_cpu': check_v5_f32(pth, pt, frames[0])}
+    launches = {}
+    for name, dtype, reps in V5_DTYPES:
+        runs, summary[name] = run_v5_predict(name, dtype, reps, pth, pt,
+                                             frames, counters)
+        launches.update({f'v5_{name}_{k}': v for k, v in runs.items()})
+    record, summary['stream_bf16'] = run_v5_stream(pth, pt, counters)
+    launches['v5_stream_bf16'] = record['launches']
+    summary['seconds'] = time.perf_counter() - t0
+    print(f'phase 6: {summary["seconds"]:.1f} s', flush=True)
+    return launches, summary
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -1390,6 +1618,9 @@ def main():
                                                'stack8': stack[k]}
             stream_launches, summary['stream'] = run_stream_phase(
                 dev, pths[48], weights, counters)
+            v5_launches, summary['poseresnet_yolov5'] = run_v5_phase(
+                tmp, counters)
+            stream_launches.update(v5_launches)
             for run, launches in stream_launches.items():
                 for k in counters:
                     totals[k] += launches[k]

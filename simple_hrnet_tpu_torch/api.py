@@ -1,21 +1,24 @@
 """SimpleHRNet — the multi-person inference facade, in PyTorch on CUDA.
 
-Counterpart of ``simple_hrnet_tpu/api.py`` for ``model_name='HRNet'``,
-``multiperson=True``, ``yolo_version='v3'`` and ``dtype`` None (f32),
-'bfloat16' or 'int8' (post-training quantization of HRNet and YOLOv3, with
-``calibration_images`` and ``int8_exclude``). ``predict(image)`` keeps the
-reference's contract (one HWC BGR frame or an NHWC stack; (people, joints,
-3) arrays of (y, x, conf), optionally preceded by heatmaps and bounding
-boxes).
+Counterpart of ``simple_hrnet_tpu/api.py`` for ``multiperson=True``:
+``model_name`` 'HRNet' or 'PoseResNet' (ResNet-18/34/50/101/152, ``c`` the
+ResNet size), ``yolo_version`` 'v3' (YOLOv3 / YOLOv3-tiny) or 'v5'
+(YOLOv5 n/s/m/l/x), and ``dtype`` None (f32), 'bfloat16' or 'int8'
+(post-training quantization of the pose model and of YOLOv3, with
+``calibration_images`` and ``int8_exclude``; YOLOv5 stays bf16, the JAX
+package's policy). ``predict(image)`` keeps the reference's contract (one
+HWC BGR frame or an NHWC stack; (people, joints, 3) arrays of (y, x,
+conf), optionally preceded by heatmaps and bounding boxes).
 
 Pipeline, all on the device: each frame is uploaded once as uint8 and
-flipped BGR -> RGB there; YOLOv3 detects (NMS kernel K1); the valid
-(frame, box) pairs are compacted frame-major by a stable argsort; a
+flipped BGR -> RGB there; the detector finds people (NMS kernel K1); the
+valid (frame, box) pairs are compacted frame-major by a stable argsort; a
 power-of-two bucket of them is aspect-padded, PIL-exact cropped,
-normalized, posed by HRNet (a branch-0 chain kernel — K2, the Winograd
-chain B3 or the int8 chain B4 — and K3 in every stage module) and
-argmax-decoded. The first host read is the people count, after the first
-pose batch.
+normalized, posed and argmax-decoded. HRNet runs a branch-0 chain kernel
+(K2, the Winograd chain B3 or the int8 chain B4) and K3 in every stage
+module; PoseResNet runs cuDNN convs and transposed convs, as the JAX
+package runs it in XLA. The first host read is the people count, after
+the first pose batch.
 
 ``predict_stream`` (fixed-slot, chunked, adaptive and compact modes) and
 ``warmup`` are the JAX facade's video entry points. A stream launch copies
@@ -36,9 +39,11 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
-from simple_hrnet_tpu_torch.models import hrnet
+from simple_hrnet_tpu_torch.detectors.yolov5 import YOLOv5
+from simple_hrnet_tpu_torch.models import hrnet, poseresnet
 from simple_hrnet_tpu_torch.models import layers as L
 from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
@@ -46,6 +51,10 @@ from simple_hrnet_tpu_torch.ops import decode as D
 from simple_hrnet_tpu_torch.ops import image as I
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
 from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
+
+
+HRNET_NAMES = ('HRNet', 'hrnet')
+POSERESNET_NAMES = ('PoseResNet', 'poseresnet', 'ResNet', 'resnet')
 
 
 def _buckets(n: int, max_batch: int) -> int:
@@ -136,7 +145,7 @@ class _SlotController:
 
 def _pose_tail(model, crops: torch.Tensor, padded_boxes: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """uint8-rounded crops -> ImageNet normalize -> HRNet -> argmax decode
+    """uint8-rounded crops -> ImageNet normalize -> pose model -> argmax decode
     into the padded-box frame coordinates (SimpleHRNet.py:279-296)."""
     x = I.normalize(torch.clamp(torch.round(crops), 0.0, 255.0))
     hm = model(x)
@@ -151,21 +160,26 @@ def _not_ported(what: str):
 class SimpleHRNet:
     """Multi-person 2D pose estimation on an NVIDIA GPU.
 
-    Args mirror the JAX facade. ``device``: 'cuda' (default; raises without
-    a card) or 'cpu'. ``dtype``: None (f32), 'bfloat16' (HRNet and darknet
-    convs in bf16, heatmap head f32) or 'int8': TensorRT-style
-    post-training quantization (``models/quantize.py``) of HRNet and of
-    YOLOv3 (not of YOLOv3-tiny, as in the JAX package), bf16 elsewhere —
-    the precision mix of the JAX facade's ``use_fused_kernels=False`` int8
-    graph, with the branch-0 chains on the int8 chain kernel.
-    ``calibration_images`` (HWC RGB frames) calibrate the activation
-    scales instead of smooth synthetic frames; ``int8_exclude`` (dotted
-    path prefixes such as ('stage4',)) keeps those convs bf16. Both raise
-    ``ValueError`` without int8. HRNet's branch-0 chain and high-res fusion
-    always run through the CUDA kernels on the card
-    (``use_fused_kernels=False`` raises). ``interpolation`` is validated as
-    in the JAX facade; multi-person crops always use the PIL-exact
-    resampler there too.
+    Args mirror the JAX facade. ``model_name``: 'HRNet' (``c`` the width)
+    or 'PoseResNet' ('poseresnet', 'ResNet', 'resnet'; ``c`` the ResNet
+    size); ``yolo_version``: 'v3' (``yolo_model_def`` 'yolov3' or
+    'yolov3-tiny', ``yolo_weights_path``) or 'v5' (``yolo_model_def`` an
+    ultralytics ``.pt`` or a variant name; anything else is a random
+    yolov5m, as in the JAX facade). ``device``: 'cuda' (default; raises
+    without a card) or 'cpu'. ``dtype``: None (f32), 'bfloat16' (pose and
+    detector convs in bf16, heatmap head f32) or 'int8': TensorRT-style
+    post-training quantization (``models/quantize.py``) of the pose model
+    and of YOLOv3 (not of YOLOv3-tiny or YOLOv5, as in the JAX package),
+    bf16 elsewhere — the precision mix of the JAX facade's
+    ``use_fused_kernels=False`` int8 graph, with HRNet's branch-0 chains
+    on the int8 chain kernel. ``calibration_images`` (HWC RGB frames)
+    calibrate the activation scales instead of smooth synthetic frames;
+    ``int8_exclude`` (dotted path prefixes such as ('stage4',)) keeps
+    those convs bf16. Both raise ``ValueError`` without int8. HRNet's
+    branch-0 chain and high-res fusion always run through the CUDA kernels
+    on the card (``use_fused_kernels=False`` raises). ``interpolation`` is
+    validated as in the JAX facade; multi-person crops always use the
+    PIL-exact resampler there too.
     """
 
     def __init__(self,
@@ -200,12 +214,12 @@ class SimpleHRNet:
             raise ValueError("int8_exclude only applies with dtype='int8' "
                              '(nothing is quantized otherwise)')
         self.calibration_images = calibration_images
-        if model_name not in ('HRNet', 'hrnet'):
-            raise _not_ported(f'model_name={model_name!r}')
+        if model_name not in HRNET_NAMES + POSERESNET_NAMES:
+            raise ValueError('Wrong model name.')
         if not multiperson:
             raise _not_ported('multiperson=False (the single-person path)')
-        if yolo_version != 'v3':
-            raise _not_ported(f'yolo_version={yolo_version!r}')
+        if yolo_version not in ('v3', 'v5'):
+            raise ValueError('Unsupported YOLO version.')
         if enable_tensorrt or checkpoint_path.endswith('.jaxpose'):
             raise _not_ported('engine export / enable_tensorrt')
         if not use_fused_kernels:
@@ -237,34 +251,43 @@ class SimpleHRNet:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
-        model = load_into(hrnet.HRNet(c, nof_joints),
-                          ckpt.load(checkpoint_path)).to(self.device)
+        if model_name in HRNET_NAMES:
+            net, prepare = hrnet.HRNet(c, nof_joints), hrnet.prepare_inference
+        else:
+            net = poseresnet.PoseResNet(c, nof_joints)
+            prepare = poseresnet.prepare_inference
+        model = load_into(net, ckpt.load(checkpoint_path)).to(self.device)
         amax = None
         if self.quantize_int8:
-            # calibrate the folded f32 model with its plain blocks, before
-            # prepare_inference packs the chains (api.py:264-277 of the JAX
-            # package calibrates the plain hrnet.apply graph too)
+            # calibrate the folded f32 model with its plain modules, before
+            # prepare_inference packs HRNet's chains (api.py:264-277 of the
+            # JAX package calibrates the plain apply graph too)
             L.fold_batch_norm(model.eval())
             amax = self._calibrate_int8(model)
             if self.int8_exclude:
                 amax = Q.filter_amax(model, amax, self.int8_exclude)
-        self.model = hrnet.prepare_inference(model, self.dtype, amax=amax)
+        self.model = prepare(model, self.dtype, amax=amax)
 
-        self.detector = YOLOv3(model_def=yolo_model_def,
-                               class_path=yolo_class_path,
-                               weights_path=yolo_weights_path,
-                               max_batch_size=max_batch_size,
-                               max_detections=yolo_max_detections,
-                               device=self.device,
-                               dtype='int8' if self.quantize_int8 else
-                               None if self.dtype == torch.float32
-                               else 'bfloat16')
+        det_dtype = 'int8' if self.quantize_int8 else \
+            None if self.dtype == torch.float32 else 'bfloat16'
+        if yolo_version == 'v3':
+            self.detector = YOLOv3(model_def=yolo_model_def,
+                                   class_path=yolo_class_path,
+                                   weights_path=yolo_weights_path,
+                                   max_batch_size=max_batch_size,
+                                   max_detections=yolo_max_detections,
+                                   device=self.device, dtype=det_dtype)
+        else:
+            self.detector = YOLOv5(model_def=yolo_model_def,
+                                   max_batch_size=max_batch_size,
+                                   max_detections=yolo_max_detections,
+                                   device=self.device, dtype=det_dtype)
         # runner caches, keyed as the JAX facade keys its jit caches
         self._gather_runs: Dict[tuple, Callable] = {}
         self._fused_runs: Dict[tuple, Callable] = {}
 
     @torch.no_grad()
-    def _calibrate_int8(self, model: hrnet.HRNet):
+    def _calibrate_int8(self, model: nn.Module):
         """Activation amax of every conv of the folded f32 ``model``
         (JAX facade api.py:362-396): one forward on the
         ``calibration_images`` (HWC RGB, linearly resized to the model

@@ -74,7 +74,90 @@ def _pad_on(pad_x: float, pad_y: float, device: torch.device) -> torch.Tensor:
                                      np.float32), device)
 
 
-class YOLOv3:
+def top_candidates(preds: torch.Tensor, score: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each frame's ``TOP_K`` best candidates by ``score`` (N, A): their
+    scores, indices into A, and (x1, y1, x2, y2) boxes from the (cx, cy,
+    w, h) of ``preds`` (N, A, 5 + C). The order is ``lax.top_k``'s:
+    descending, the lowest index first among ties — a stable descending
+    sort (torch.topk promises no tie order)."""
+    k = min(TOP_K, score.shape[1])
+    top_scores, top_idx = torch.sort(score, dim=1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    xywh = torch.gather(preds[..., :4], 1,
+                        top_idx[..., None].expand(-1, -1, 4))
+    boxes = torch.stack([
+        xywh[..., 0] - xywh[..., 2] / 2, xywh[..., 1] - xywh[..., 3] / 2,
+        xywh[..., 0] + xywh[..., 2] / 2, xywh[..., 1] + xywh[..., 3] / 2],
+        dim=-1)
+    return top_scores, top_idx, boxes
+
+
+def kept_rows(boxes: torch.Tensor, top_scores: torch.Tensor,
+              top_cls_conf: torch.Tensor, top_cls: torch.Tensor,
+              keep_idx: torch.Tensor, img_size: int,
+              in_hw: Tuple[int, int]) -> torch.Tensor:
+    """The NMS survivors ``keep_idx`` (N, max_det) of the candidates as
+    (N, max_det, 7) rows (x1, y1, x2, y2, conf, cls_conf, cls_pred),
+    their boxes mapped from the letterbox back to the ``in_hw`` frame."""
+    keep = keep_idx.long()
+    rows = torch.cat([
+        torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4)),
+        torch.gather(top_scores, 1, keep)[..., None],
+        torch.gather(top_cls_conf, 1, keep)[..., None],
+        torch.gather(top_cls, 1, keep).float()[..., None]], dim=-1)
+    gain, pad_x, pad_y = scale_coords_params(img_size, in_hw)
+    pad = _pad_on(pad_x, pad_y, rows.device)
+    rows[..., :4] = torch.clamp((rows[..., :4] - pad) / gain, min=0.0)
+    return rows
+
+
+class PersonDetector:
+    """The reference adapter's API over a subclass's ``_detect`` (one
+    chunk of (N, H, W, 3) RGB frames on ``self.device`` -> padded rows and
+    validity), in chunks of ``self.max_batch_size`` frames."""
+
+    device: torch.device
+    max_batch_size: int
+
+    def _detect(self, frames: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def detect_padded(self, frames_rgb) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, H, W, 3) RGB frames (numpy or tensor) -> padded rows and
+        validity on the device, in chunks of ``max_batch_size`` frames."""
+        frames = torch.as_tensor(frames_rgb, device=self.device)
+        parts = [self._detect(frames[s:s + self.max_batch_size])
+                 for s in range(0, frames.shape[0], self.max_batch_size)]
+        if len(parts) == 1:
+            return parts[0]
+        return (torch.cat([r for r, _ in parts]),
+                torch.cat([v for _, v in parts]))
+
+    def predict_single(self, image: np.ndarray, color_mode: str = 'BGR'):
+        """Single frame -> (n_det, 7) array or None (reference YOLOv3.py)."""
+        return self.predict(image[None], color_mode=color_mode)[0]
+
+    def predict(self, images: np.ndarray, color_mode: str = 'BGR'
+                ) -> List[Optional[np.ndarray]]:
+        """Batch of frames -> list of per-image (n_det, 7) arrays or None."""
+        frames = torch.as_tensor(np.ascontiguousarray(images),
+                                 device=self.device)
+        if color_mode == 'BGR':
+            frames = frames.flip(-1)
+        rows, valid = self.detect_padded(frames)
+        rows = rows.cpu().numpy()
+        valid = valid.cpu().numpy()
+        out: List[Optional[np.ndarray]] = []
+        for i in range(rows.shape[0]):
+            n = int(valid[i].sum())
+            out.append(rows[i, :n] if n > 0 else None)
+        return out
+
+
+class YOLOv3(PersonDetector):
     """Person detector with the reference adapter's constructor surface.
 
     ``model_def``: 'yolov3' or 'yolov3-tiny'; ``weights_path``: a darknet
@@ -163,71 +246,16 @@ class YOLOv3:
         keep_cls = torch.isin(cls_pred, self.class_ids)
         score = torch.where((obj >= self.conf_thres) & keep_cls, obj,
                             torch.zeros((), device=obj.device))
-        k = min(TOP_K, score.shape[1])
-        # lax.top_k order: descending, lowest index first among ties — a
-        # stable descending sort (torch.topk promises no tie order)
-        top_scores, top_idx = torch.sort(score, dim=1, descending=True,
-                                         stable=True)
-        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-        xywh = torch.gather(preds[..., :4], 1,
-                            top_idx[..., None].expand(-1, -1, 4))
-        boxes = torch.stack([
-            xywh[..., 0] - xywh[..., 2] / 2, xywh[..., 1] - xywh[..., 3] / 2,
-            xywh[..., 0] + xywh[..., 2] / 2, xywh[..., 1] + xywh[..., 3] / 2],
-            dim=-1)
+        top_scores, top_idx, boxes = top_candidates(preds, score)
         top_cls = torch.gather(cls_pred, 1, top_idx)
         # class-aware NMS: offset boxes per class
         offset = top_cls.float()[..., None] * (2.0 * img_size)
         keep_idx, keep_valid = nms_ingraph(boxes + offset, top_scores,
                                            self.nms_thres,
                                            self.max_detections)
-        keep = keep_idx.long()
-        top_cls_conf = torch.gather(cls_conf, 1, top_idx)
-        rows = torch.cat([
-            torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4)),
-            torch.gather(top_scores, 1, keep)[..., None],
-            torch.gather(top_cls_conf, 1, keep)[..., None],
-            torch.gather(top_cls, 1, keep).float()[..., None]], dim=-1)
-        gain, pad_x, pad_y = scale_coords_params(img_size, in_hw)
-        pad = _pad_on(pad_x, pad_y, rows.device)
-        rows[..., :4] = torch.clamp((rows[..., :4] - pad) / gain, min=0.0)
+        rows = kept_rows(boxes, top_scores, torch.gather(cls_conf, 1, top_idx),
+                         top_cls, keep_idx, img_size, in_hw)
         return rows, keep_valid
-
-    def detect_padded(self, frames_rgb) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(N, H, W, 3) RGB frames (numpy or tensor) -> padded rows and
-        validity on the device, in chunks of ``max_batch_size`` frames."""
-        frames = torch.as_tensor(frames_rgb, device=self.device)
-        n = frames.shape[0]
-        rows_l, valid_l = [], []
-        for s in range(0, n, self.max_batch_size):
-            r, v = self._detect(frames[s:s + self.max_batch_size])
-            rows_l.append(r)
-            valid_l.append(v)
-        if len(rows_l) == 1:
-            return rows_l[0], valid_l[0]
-        return torch.cat(rows_l), torch.cat(valid_l)
-
-    # -- reference-compatible API ------------------------------------------
-
-    def predict_single(self, image: np.ndarray, color_mode: str = 'BGR'):
-        """Single frame -> (n_det, 7) array or None (reference YOLOv3.py)."""
-        return self.predict(image[None], color_mode=color_mode)[0]
-
-    def predict(self, images: np.ndarray, color_mode: str = 'BGR'
-                ) -> List[Optional[np.ndarray]]:
-        """Batch of frames -> list of per-image (n_det, 7) arrays or None."""
-        frames = torch.as_tensor(np.ascontiguousarray(images),
-                                 device=self.device)
-        if color_mode == 'BGR':
-            frames = frames.flip(-1)
-        rows, valid = self.detect_padded(frames)
-        rows = rows.cpu().numpy()
-        valid = valid.cpu().numpy()
-        out: List[Optional[np.ndarray]] = []
-        for i in range(rows.shape[0]):
-            n = int(valid[i].sum())
-            out.append(rows[i, :n] if n > 0 else None)
-        return out
 
 
 def _resolve_dtype(dtype) -> torch.dtype:

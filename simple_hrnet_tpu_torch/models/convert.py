@@ -9,8 +9,12 @@ already use the official ``state_dict`` names, so loading an official
 nested dict of numpy arrays (HWIO ``kernel``, BN ``scale``/``bias``/
 ``mean``/``var``) becomes a flat ``state_dict`` (OIHW ``weight``, BN
 ``weight``/``bias``/``running_mean``/``running_var``). It covers the HRNet
-tree and the darknet tree (``conv_<i>`` nodes with a nested ``bn``), so
-the tests can run both packages on the same weights. ``amax_from_jax``
+and PoseResNet trees, the darknet tree (``conv_<i>`` nodes with a nested
+``bn``) and the YOLOv5 tree, so the tests can run both packages on the
+same weights. PoseResNet's transposed convs (``deconv_layers.N``) are
+stored by the JAX package spatially flipped, HWIO with I = C_in (its
+``convert.state_dict_to_tree``); their torch weight (C_in, C_out, kh, kw)
+is the flip undone and transposed. ``amax_from_jax``
 carries a JAX int8 calibration map across the same way.
 """
 
@@ -73,8 +77,14 @@ def from_jax_params(tree: Mapping[str, Any], prefix: str = ''
             flat[f'{path}.running_mean'] = t(v['mean'])
             flat[f'{path}.running_var'] = t(v['var'])
             continue
-        if 'kernel' in v:  # HWIO -> OIHW
-            flat[f'{path}.weight'] = t(np.transpose(v['kernel'], (3, 2, 0, 1)))
+        if 'kernel' in v:
+            k = np.asarray(v['kernel'])
+            if 'deconv_layers' in path.split('.'):
+                # flipped HWIO (I = C_in) -> ConvTranspose2d (I, O, kh, kw)
+                flat[f'{path}.weight'] = t(np.transpose(k[::-1, ::-1],
+                                                        (2, 3, 0, 1)))
+            else:  # HWIO -> OIHW
+                flat[f'{path}.weight'] = t(np.transpose(k, (3, 2, 0, 1)))
             if 'bias' in v:
                 flat[f'{path}.bias'] = t(v['bias'])
             children = {ck: cv for ck, cv in v.items()

@@ -77,7 +77,8 @@ class StageModule(nn.Module):
         self.c = c
         self.n_branches = n_branches
         self.branches = nn.ModuleList([
-            nn.Sequential(*[L.BasicBlock(c * 2 ** b) for _ in range(4)])
+            nn.Sequential(*[L.BasicBlock(c * 2 ** b, c * 2 ** b)
+                            for _ in range(4)])
             for b in range(n_branches)])
         self.fuse_layers = nn.ModuleList()
         for i in range(n_out):

@@ -45,36 +45,45 @@ def bn(c: int) -> nn.BatchNorm2d:
 
 
 class BasicBlock(nn.Module):
-    """3x3 -> BN -> ReLU -> 3x3 -> BN, residual add, ReLU (no downsample in
-    any HRNet configuration; the reference's conv2 in_channels=inplanes
-    quirk is coherent only when inplanes == planes, as here)."""
+    """3x3 (stride) -> BN -> ReLU -> 3x3 -> BN, residual add (1x1 stride
+    ``stride`` downsample + BN when ``downsample``), ReLU. conv2 maps
+    ``planes -> planes``: the reference constructs it with
+    ``in_channels=inplanes``, which is coherent only when inplanes ==
+    planes (every HRNet block) and crashes ResNet-18/34; the JAX package
+    corrects it the same way (its ``layers.basic_block``)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c_in: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
         super().__init__()
-        self.conv1 = conv3x3(c, c)
-        self.bn1 = bn(c)
-        self.conv2 = conv3x3(c, c)
-        self.bn2 = bn(c)
+        self.conv1 = conv3x3(c_in, planes, stride)
+        self.bn1 = bn(planes)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = bn(planes)
+        self.downsample = (nn.Sequential(conv1x1(c_in, planes, stride),
+                                         bn(planes))
+                           if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
-        return F.relu(out + x)
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 -> 1x1 (expansion 4), residual (optional 1x1 downsample),
-    ReLU."""
+    """1x1 -> 3x3 (stride) -> 1x1 (expansion 4), residual (optional 1x1
+    stride ``stride`` downsample + BN), ReLU."""
 
-    def __init__(self, c_in: int, planes: int, downsample: bool = False):
+    def __init__(self, c_in: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
         super().__init__()
         self.conv1 = conv1x1(c_in, planes)
         self.bn1 = bn(planes)
-        self.conv2 = conv3x3(planes, planes)
+        self.conv2 = conv3x3(planes, planes, stride)
         self.bn2 = bn(planes)
         self.conv3 = conv1x1(planes, planes * 4)
         self.bn3 = bn(planes * 4)
-        self.downsample = (nn.Sequential(conv1x1(c_in, planes * 4),
+        self.downsample = (nn.Sequential(conv1x1(c_in, planes * 4, stride),
                                          bn(planes * 4))
                            if downsample else None)
 
@@ -112,9 +121,12 @@ class QConv2d(nn.Module):
                            self.bias, self.stride, self.padding)
 
 
-def _fold_pair(conv: nn.Conv2d, norm: nn.BatchNorm2d) -> None:
+def _fold_pair(conv: nn.Module, norm: nn.BatchNorm2d) -> None:
     """y = (conv(x) - mean) * gamma / sqrt(var + eps) + beta, absorbed into
-    ``conv`` in place (same arithmetic as the JAX package's _fold_pair)."""
+    ``conv`` in place (same arithmetic as the JAX package's _fold_pair).
+    The scale multiplies the output channels: dim 0 of an ``nn.Conv2d``
+    weight (C_out, C_in, kh, kw), dim 1 of an ``nn.ConvTranspose2d``
+    weight (C_in, C_out, kh, kw)."""
     with torch.no_grad():
         w = conv.weight.float()
         inv = norm.weight.float() / torch.sqrt(norm.running_var.float()
@@ -122,20 +134,23 @@ def _fold_pair(conv: nn.Conv2d, norm: nn.BatchNorm2d) -> None:
         bias = norm.bias.float() - norm.running_mean.float() * inv
         if conv.bias is not None:
             bias = bias + conv.bias.float() * inv
-        conv.weight = nn.Parameter(w * inv[:, None, None, None],
-                                   requires_grad=False)
+        scale = (inv[None, :, None, None]
+                 if isinstance(conv, nn.ConvTranspose2d)
+                 else inv[:, None, None, None])
+        conv.weight = nn.Parameter(w * scale, requires_grad=False)
         conv.bias = nn.Parameter(bias, requires_grad=False)
 
 
 def fold_batch_norm(module: nn.Module) -> nn.Module:
-    """Fold every (conv, BN) sibling pair below ``module`` in place and
-    replace the BN by ``nn.Identity``. Pairing rules (as in the JAX
-    package): ``convN``/``bnN`` siblings, and numbered children where
-    child i is a conv and child i+1 a BN. Returns ``module``."""
+    """Fold every (conv or transposed conv, BN) sibling pair below
+    ``module`` in place and replace the BN by ``nn.Identity``. Pairing
+    rules (as in the JAX package): ``convN``/``bnN`` siblings, and numbered
+    children where child i is a conv and child i+1 a BN (PoseResNet's
+    ``deconv_layers`` among them). Returns ``module``."""
     for parent in list(module.modules()):
         children = dict(parent.named_children())
         for name, child in children.items():
-            if not isinstance(child, nn.Conv2d):
+            if not isinstance(child, (nn.Conv2d, nn.ConvTranspose2d)):
                 continue
             if name.startswith('conv'):
                 bn_name: Optional[str] = 'bn' + name[len('conv'):]
@@ -162,10 +177,10 @@ def init_conv_(weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 def init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
-    """Seeded torch-default init of every conv below ``module``; BNs get
-    identity statistics."""
+    """Seeded torch-default init of every conv and transposed conv below
+    ``module``; BNs get identity statistics."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             init_conv_(m.weight, m.bias, gen)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()

@@ -233,14 +233,25 @@ def test_whole_slice_matches_jax(facades):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(model_name='PoseResNet'), dict(multiperson=False),
-    dict(yolo_version='v5'), dict(enable_tensorrt=True),
+    dict(multiperson=False), dict(enable_tensorrt=True),
     dict(mesh=object()), dict(yolo_class_path='coco.names'),
     dict(yolo_model_def='my.cfg'), dict(use_fused_kernels=False)])
 def test_unported_options_raise(tmp_path, kwargs):
     path = str(tmp_path / 'w8.pth')
     torch.save(TH.init(8, 17).state_dict(), path)
     with pytest.raises(NotImplementedError):
+        SimpleHRNet(8, 17, path, resolution=RES, device='cpu', **kwargs)
+
+
+@pytest.mark.parametrize('kwargs, message', [
+    (dict(model_name='Unknown'), 'Wrong model name.'),
+    (dict(yolo_version='v4'), 'Unsupported YOLO version.')])
+def test_wrong_model_choices_raise(tmp_path, kwargs, message):
+    """The JAX facade's errors for a model or detector it does not know
+    (its api.py:322 and :355)."""
+    path = str(tmp_path / 'w8.pth')
+    torch.save(TH.init(8, 17).state_dict(), path)
+    with pytest.raises(ValueError, match=message):
         SimpleHRNet(8, 17, path, resolution=RES, device='cpu', **kwargs)
 
 
