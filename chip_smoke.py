@@ -8,10 +8,12 @@ Phases (any failure exits nonzero):
   1. build the five CUDA kernels from ``simple_hrnet_tpu_torch/csrc`` (one
      nvcc per source, all at once) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (every batch phases 4 and 5 give the pose model): NMS
+     main paths' shapes (every batch phases 4, 5 and 7 give the pose model,
+     W48's from 1 to 64): NMS
      slot for slot (the 8-, 4- and one-frame detects, unsorted scores, N
      = 1000 and 1024, max_out > N), the basic chain at W48 in bf16 and
-     f32 (TF32 off), the fuse at W48 in bf16 and f32 and at W32 in bf16,
+     f32 (TF32 off) and at W32 in f32, the fuse at W48 in bf16 and f32 and
+     at W32 in bf16 and f32,
      the Winograd chain at W32 in bf16, the int8 chain exactly at W32 and
      W48 in both cast-point modes; show that wrong-input controls fall
      outside each tolerance; time the kernel, the plain version and one
@@ -69,7 +71,27 @@ Phases (any failure exits nonzero):
      on 1 and 8 frames, timed and profiled, with K1 launched once a detect
      chunk and no other kernel; in bf16 after ``warmup`` one chunked
      ``predict_stream`` (4 frames a launch) runs as phase 5 runs its modes,
-     dispatch guarded, and is timed over 128 frames.
+     dispatch guarded, and is timed over 128 frames;
+  7. the single-person path: ``SimpleHRNet(c, 17, <.pth>, resolution,
+     multiperson=False, interpolation=...)`` on the same 480x640 frames, no
+     detector. In f32, entered with both TF32 flags on (cuDNN's is on by
+     PyTorch's default), W48-384x288 and W32-256x192 on the card against
+     the same facade on the CPU for 'cubic', 'linear' and 'bilinear_aa':
+     the rounded resized frames within one count, heatmaps within 1e-5 of
+     max (plus, where a count flipped, the card's own response to it),
+     keypoints where the peak is clear, K2 and K3 8 times a call at a
+     batch phase 2 checked; the flags must still be on after each
+     ``predict``, and a control run with the pose model outside
+     ``true_f32`` (in TF32) must exceed that heatmap limit.
+     ``use_fused_kernels=False`` at W48 f32 against
+     the kernel facade within phase 3's limit, with no port kernel
+     launched. ``predict`` on 1 and 8 frames in bf16 at both widths and on
+     one frame in W32 int8, launch counts reset just before each call and
+     read just after (K1 never; the path's chain and K3 8 times, one pose
+     forward a call, at batches phase 2 checked), timed and the 8-frame
+     call profiled; the single-person ``predict_stream`` at W48 bf16 after
+     ``warmup`` over 128 frames (the 16 looped), dispatch guarded, timed
+     and profiled as phase 5's modes.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -114,12 +136,16 @@ TOL_INT8_CONTROL = 2.0 ** -8
 # the batches the W48 paths give the pose model: phase 4's predict calls
 # (max_batch_size 32, 32 people a frame from the random detector) 2 and 32
 # for one frame, 16 and 32 for the stack of 8; phase 5's streams (16
-# people a frame) 2-16 a frame and 8-64 in chunks of 4 frames. Phase 2
-# checks the kernels at each; phases 4 and 5 fail if the pose model sees
-# another.
-POSE_BATCHES = (2, 4, 8, 16, 32, 64)
-# the batch at which phase 2 times the W48 kernels and holds the controls
+# people a frame) 2-16 a frame and 8-64 in chunks of 4 frames; phase 7's
+# single-person path 1 (one frame, and its stream) and 8 (the stack of 8).
+# Phase 2 checks the kernels at each; phases 4, 5 and 7 fail if the pose
+# model sees another.
+POSE_BATCHES = (1, 2, 4, 8, 16, 32, 64)
+# the batches at which phase 2 times the W48 kernels (and holds the
+# controls at the first): the 8-frame multi-person path's and the
+# 1-frame path's smallest
 TIME_BATCH = 32
+SMALL_BATCH = 2
 # the W32 paths: every power-of-two bucket predict can form at
 # max_batch_size 32 (the int8 detector may keep other counts of people)
 POSE_BATCHES_W32 = (1, 2, 4, 8, 16, 32)
@@ -277,8 +303,16 @@ def check_nms(dev, rec):
           f'{b_ms:.5f} {b_by}', flush=True)
 
 
+# branch 0's shapes (H, W, C) on the main paths, the chains' and the
+# high-res fuse's base: W48 at 384x288 and W32 at 256x192; the fuse's
+# sources at /2, /4, /8 with 2C, 4C, 8C channels
+FUSE_W48 = (96, 72, 48)
+FUSE_W32 = (64, 48, 32)
+
+
 def _chain_inputs(dev, dtype, bsz, h=96, w=72, c=48):
-    """W48 branch-0 operands; biases at folded-BN scale (uniform +-1)."""
+    """Branch-0 operands (W48 by default); biases at folded-BN scale
+    (uniform +-1)."""
     g = torch.Generator().manual_seed(2)
     x = torch.randn((bsz, h, w, c), generator=g).to(dev, dtype)
     lim = 1.0 / np.sqrt(9 * c)
@@ -338,21 +372,25 @@ def time_chain(K, dev, bsz):
 def check_chain(dev, rec):
     from simple_hrnet_tpu_torch.ops.cuda import fused_block as K
 
+    # W48 in f32 and bf16; W32 in f32 (phase 7's f32 single-person path:
+    # the Winograd chain takes W32 in bf16 only)
+    cases = [(dtype, FUSE_W48, bsz) for dtype in (torch.float32,
+                                                  torch.bfloat16)
+             for bsz in POSE_BATCHES] + \
+        [(torch.float32, FUSE_W32, bsz) for bsz in POSE_BATCHES_W32]
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for bsz in POSE_BATCHES:
-            x, wt, b = _chain_inputs(dev, dtype, bsz)
-            y = K.basic_chain(x, wt, b)
-            ref = K.basic_chain_plain(x, wt, b)
-            torch.cuda.synchronize()
-            err, rel = rel_err(y, ref)
-            if rel > TOL[dtype]:
-                raise AssertionError(f'basic_chain {dtype} B={bsz}: max err '
-                                     f'{err} ({rel} of max) > {TOL[dtype]}')
-            errs[(dtype, bsz)] = (err, rel)
-            print(f'K2 basic_chain {str(dtype)[6:]} B={bsz}: max abs err '
-                  f'{err:.3e} (rel {rel:.3e}, tol {TOL[dtype]:.1e})',
-                  flush=True)
+    for dtype, shape, bsz in cases:
+        x, wt, b = _chain_inputs(dev, dtype, bsz, *shape)
+        y = K.basic_chain(x, wt, b)
+        ref = K.basic_chain_plain(x, wt, b)
+        torch.cuda.synchronize()
+        err, rel = rel_err(y, ref)
+        if rel > TOL[dtype]:
+            raise AssertionError(f'basic_chain {dtype} {shape} B={bsz}: max '
+                                 f'err {err} ({rel} of max) > {TOL[dtype]}')
+        errs[(dtype, shape, bsz)] = (err, rel)
+        print(f'K2 basic_chain {str(dtype)[6:]} {shape} B={bsz}: max abs err '
+              f'{err:.3e} (rel {rel:.3e}, tol {TOL[dtype]:.1e})', flush=True)
     bsz = TIME_BATCH
     x, wt, b = _chain_inputs(dev, torch.bfloat16, bsz)
     ref = K.basic_chain_plain(x, wt, b)
@@ -363,9 +401,7 @@ def check_chain(dev, rec):
         'biases off by one channel': K.basic_chain_plain(
             x, wt, b.roll(1, dims=1))}, TOL[torch.bfloat16])
     del x, wt, b, ref, last_dropped
-    # the 8-frame path's batch, then the 1-frame path's smallest
-    head, small = time_chain(K, dev, bsz), time_chain(K, dev,
-                                                      min(POSE_BATCHES))
+    head, small = time_chain(K, dev, bsz), time_chain(K, dev, SMALL_BATCH)
     x32, wt32, b32 = _chain_inputs(dev, torch.float32, bsz)
     ms32 = cuda_ms(lambda: K.basic_chain(x32, wt32, b32))
     _, h, w, c = x32.shape
@@ -375,24 +411,23 @@ def check_chain(dev, rec):
         name='basic_chain', route='cuda',
         source='simple_hrnet_tpu_torch/csrc/fused_block.cu',
         replaces='simple_hrnet_tpu/ops/pallas/fused_block.py:398',
-        max_abs_err=max(errs[(torch.bfloat16, n)][0] for n in POSE_BATCHES),
-        max_rel_err=max(errs[(torch.bfloat16, n)][1] for n in POSE_BATCHES),
+        max_abs_err=max(errs[(torch.bfloat16, FUSE_W48, n)][0]
+                        for n in POSE_BATCHES),
+        max_rel_err=max(errs[(torch.bfloat16, FUSE_W48, n)][1]
+                        for n in POSE_BATCHES),
         tolerance=TOL[torch.bfloat16], control_rel=control,
         ms=head['ms'], plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
         bound_by=head['bound_by'], library_ms=head['library_ms'],
         shape=head['shape'], timings=[head, small],
         checked_batches=list(POSE_BATCHES),
-        f32_max_abs_err=max(errs[(torch.float32, n)][0]
+        f32_max_abs_err=max(errs[(torch.float32, FUSE_W48, n)][0]
                             for n in POSE_BATCHES),
+        f32_max_abs_err_w32=max(errs[(torch.float32, FUSE_W32, n)][0]
+                                for n in POSE_BATCHES_W32),
+        checked_batches_f32_w32=list(POSE_BATCHES_W32),
         f32_ms=ms32, f32_bound_ms=b32_ms, f32_bound_by=b32_by)
     print(f'K2 basic_chain f32 B={bsz}: {ms32:.4f} ms (bound {b32_ms:.5f} '
           f'{b32_by})', flush=True)
-
-
-# the high-res fuse's base shapes (H, W, C) on the main paths: W48 at
-# 384x288 and W32 at 256x192; sources at /2, /4, /8 with 2C, 4C, 8C channels
-FUSE_W48 = (96, 72, 48)
-FUSE_W32 = (64, 48, 32)
 
 
 def _fuse_inputs(dev, dtype, n_src, bsz, h=96, w=72, c=48):
@@ -491,10 +526,12 @@ def time_fuse(K, dev, shape, n_src, bsz):
 def check_fuse_up(dev, rec):
     from simple_hrnet_tpu_torch.ops.cuda import fuse_up as K
 
-    # f32 at the W48 batches; bf16 at both widths' batches
-    cases = [(torch.float32, FUSE_W48, b) for b in POSE_BATCHES] + \
-        [(torch.bfloat16, FUSE_W48, b) for b in POSE_BATCHES] + \
-        [(torch.bfloat16, FUSE_W32, b) for b in POSE_BATCHES_W32]
+    # both dtypes at both widths' batches
+    cases = [(dtype, FUSE_W48, b) for dtype in (torch.float32,
+                                                torch.bfloat16)
+             for b in POSE_BATCHES] + \
+        [(dtype, FUSE_W32, b) for dtype in (torch.float32, torch.bfloat16)
+         for b in POSE_BATCHES_W32]
     errs = {}
     for dtype, shape, bsz in cases:
         for n_src in (1, 2, 3):
@@ -511,6 +548,7 @@ def check_fuse_up(dev, rec):
     worst = {}
     for dtype, shape, batches in ((torch.float32, FUSE_W48, POSE_BATCHES),
                                   (torch.bfloat16, FUSE_W48, POSE_BATCHES),
+                                  (torch.float32, FUSE_W32, POSE_BATCHES_W32),
                                   (torch.bfloat16, FUSE_W32,
                                    POSE_BATCHES_W32)):
         worst[(dtype, shape)] = max(v for k, v in errs.items()
@@ -547,7 +585,8 @@ def check_fuse_up(dev, rec):
         shape=head['shape'], timings=timings,
         checked_batches=list(POSE_BATCHES),
         checked_batches_w32=list(POSE_BATCHES_W32),
-        f32_max_abs_err=worst[(torch.float32, FUSE_W48)][0])
+        f32_max_abs_err=worst[(torch.float32, FUSE_W48)][0],
+        f32_max_abs_err_w32=worst[(torch.float32, FUSE_W32)][0])
 
 
 def _lib_chain(x, wt, b):
@@ -1059,16 +1098,18 @@ def drive_stream(model, frames, kw, counters, per_pose=None,
     calls. Fails if the pose model saw a batch outside ``batches`` (the
     batches phase 2 checked its kernels at; None: a pose model that runs
     no port kernel), or if a kernel ran other than once a detect (K1, for
-    a real detector) and ``per_pose`` times a pose forward (default
-    HRNet-W48's: the chain and the fuse 8 times each)."""
+    a real detector; never without a detector) and ``per_pose`` times a
+    pose forward (default HRNet-W48's: the chain and the fuse 8 times
+    each)."""
     from simple_hrnet_tpu_torch.detectors.yolov3 import PersonDetector
     from simple_hrnet_tpu_torch.utils.dispatch import strict_dispatch
 
     seen, detects = [], []
     det = model.detector
-    real_detect = det.detect_padded
-    det.detect_padded = lambda f: (detects.append(f.shape[0]),
-                                   real_detect(f))[1]
+    if det is not None:
+        real_detect = det.detect_padded
+        det.detect_padded = lambda f: (detects.append(f.shape[0]),
+                                       real_detect(f))[1]
     hook = model.model.register_forward_pre_hook(
         lambda _m, args: seen.append(args[0].shape[0]))
     try:
@@ -1080,7 +1121,8 @@ def drive_stream(model, frames, kw, counters, per_pose=None,
         launches = {k: f.launches for k, f in counters.items()}
     finally:
         hook.remove()
-        del det.detect_padded
+        if det is not None:
+            del det.detect_padded
     if batches is not None and not set(seen) <= set(batches):
         raise AssertionError(f'stream {kw}: the pose model ran at batches '
                              f'{sorted(set(seen))}; phase 2 checked the '
@@ -1214,6 +1256,42 @@ def check_stub_scene(model, counters, dev):
     return dict(counts=counts, rungs=rungs, errs=errs, record=record)
 
 
+def host_s(fn, reps):
+    """Host seconds of each of ``reps`` calls of ``fn``."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def time_frames(label, fn, short, n, n_prof):
+    """A run over ``n`` frames (``fn``, ending in a device-to-host copy)
+    timed STREAM_TIME_RUNS times on the host clock; the same run over the
+    first ``n_prof`` frames (``short``) three times, and once profiled:
+    device busy and the idle share against their median host time. Prints
+    the reading under ``label`` and returns it."""
+    torch.cuda.synchronize()
+    secs = host_s(fn, STREAM_TIME_RUNS)
+    short_ms = 1e3 * float(np.median(host_s(short, 3)))
+    busy, _, port = device_profile(short)
+    med = float(np.median(secs))
+    fps = sorted(n / s for s in secs)
+    t = dict(frames=n, host_ms=[1e3 * s for s in secs], frames_per_s=fps,
+             frames_per_s_median=n / med, profiled_frames=n_prof,
+             profiled_host_ms=short_ms, device_busy_ms=busy,
+             idle_share=1.0 - busy / short_ms, port_kernels=port)
+    print(f'{label}: {n} frames, {len(secs)} runs: median {n / med:.2f} '
+          f'frames/s (min {fps[0]:.2f}, max {fps[-1]:.2f}; host ms '
+          f'{" / ".join(f"{1e3 * s:.1f}" for s in secs)}); first {n_prof} '
+          f'frames: host {short_ms:.1f} ms, device busy {busy:.2f} ms, idle '
+          f'share {100 * t["idle_share"]:.1f}%; port kernels '
+          + '; '.join(f'{k} {ms:.3f} ms, {c}' for k, (ms, c) in port.items()),
+          flush=True)
+    return t
+
+
 def time_streams(pth, weights, counters):
     """Phase 5's timing in bf16: ``warmup``, then each mode over
     STREAM_TIME_FRAMES frames (``smooth_frames(16)`` looped) beside
@@ -1255,14 +1333,6 @@ def time_streams(pth, weights, counters):
             return lambda: [model.predict(s) for s in stacks]
         return lambda: list(model.predict_stream(fr, **kws[name]))
 
-    def host_s(fn, reps):
-        secs = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            secs.append(time.perf_counter() - t0)
-        return secs
-
     table, record = {}, {}
     for name in ('predict_1', 'predict_4', *kws):
         fn, short = runner(name, frames), runner(name, frames[:n_prof])
@@ -1278,29 +1348,8 @@ def time_streams(pth, weights, counters):
                   f'{record[name]["detects"]} detects', flush=True)
         else:
             fn()
-        torch.cuda.synchronize()
-        secs = host_s(fn, STREAM_TIME_RUNS)
-        short_ms = 1e3 * float(np.median(host_s(short, 3)))
-        busy, _, port = device_profile(short)
-        med = float(np.median(secs))
-        fps = sorted(n / s for s in secs)
-        table[name] = dict(frames=n, host_ms=[1e3 * s for s in secs],
-                           frames_per_s=fps,
-                           frames_per_s_median=n / med,
-                           profiled_frames=n_prof,
-                           profiled_host_ms=short_ms,
-                           device_busy_ms=busy,
-                           idle_share=1.0 - busy / short_ms,
-                           port_kernels=port)
-        print(f'phase 5 timing [{name}]: {n} frames, {len(secs)} runs: '
-              f'median {n / med:.2f} frames/s (min {fps[0]:.2f}, max '
-              f'{fps[-1]:.2f}; host ms '
-              f'{" / ".join(f"{1e3 * s:.1f}" for s in secs)}); first '
-              f'{n_prof} frames: host {short_ms:.1f} ms, device busy '
-              f'{busy:.2f} ms, idle share '
-              f'{100 * table[name]["idle_share"]:.1f}%; port kernels '
-              + '; '.join(f'{k} {ms:.3f} ms, {c}'
-                          for k, (ms, c) in port.items()), flush=True)
+        table[name] = time_frames(f'phase 5 timing [{name}]', fn, short, n,
+                                  n_prof)
     del model
     torch.cuda.empty_cache()
     return dict(warmup_s=warm_s, runner_caches=sizes[-1], runs=table), record
@@ -1550,6 +1599,330 @@ def run_v5_phase(tmp, counters):
     print(f'phase 6: {summary["seconds"]:.1f} s', flush=True)
     return launches, summary
 
+# phase 7: the single-person path (``multiperson=False``): no detector, the
+# whole 480x640 frame resized to the model's resolution by
+# ``interpolation``, posed and decoded against the frame. f32 card against
+# CPU at both widths and each interpolation with both TF32 flags on
+# (cuDNN's is on by PyTorch's default): the facade must compute in true
+# f32 by itself and leave the flags as it found them. The rounded frames
+# within one count (f32 matmuls summed in another order can land a
+# half-way value one count apart); heatmaps within SINGLE_HM_TOL of max
+# plus, where a count flipped, the card's own response to the flipped
+# pixels; keypoints compared where the peak clears its runner-up by 4x the
+# heatmap error. (name, width, resolution, dtype, the chain kernel that
+# runs 8 times a pose forward, the batches phase 2 checked it at, frame
+# counts predict runs on)
+SINGLE_PATHS = (
+    ('w48_bf16', 48, (384, 288), 'bfloat16', 'basic_chain', POSE_BATCHES,
+     (1, 8)),
+    ('w32_bf16', 32, (256, 192), 'bfloat16', 'wino_chain', POSE_BATCHES_W32,
+     (1, 8)),
+    ('w32_int8', 32, (256, 192), 'int8', 'int8_chain', POSE_BATCHES_W32,
+     (1,)),
+)
+SINGLE_INTERPOLATIONS = ('cubic', 'linear', 'bilinear_aa')
+# the f32 checks' (width, resolution, the batches phase 2 checked K2 and
+# K3 at in f32), and the stream's (bf16) and the plain graph's (f32)
+SINGLE_F32 = ((48, (384, 288), POSE_BATCHES),
+              (32, (256, 192), POSE_BATCHES_W32))
+SINGLE_W48 = (48, (384, 288))
+# f32 heatmaps, card against CPU, relative to max: sound runs read under
+# 1e-6 (summation order); with the pose model in TF32 the control run
+# must read above it
+SINGLE_HM_TOL = 1e-5
+# timing repetitions of predict on 1 and 8 frames
+SINGLE_REPS = {1: 10, 8: 5}
+
+
+def single_facade(c, res, pth, dtype=None, device='cuda', **kw):
+    from simple_hrnet_tpu_torch import SimpleHRNet
+    return SimpleHRNet(c, 17, pth, resolution=res, multiperson=False,
+                       dtype=dtype, return_heatmaps=True,
+                       return_bounding_boxes=True, device=device, **kw)
+
+
+def tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def tf32_control(model, frame):
+    """``model.predict(frame)``'s heatmaps with the pose model outside
+    ``true_f32``: ``_pose_tail`` swapped for its undecorated body, so the
+    pose model computes with the caller's TF32 flags (the resize keeps its
+    own rule)."""
+    from simple_hrnet_tpu_torch import api as A
+
+    wrapped = A._pose_tail
+    A._pose_tail = wrapped.__wrapped__
+    try:
+        return model.predict(frame)[0]
+    finally:
+        A._pose_tail = wrapped
+
+
+def check_single_f32(dev, pths, frame, counters):
+    """Phase 7 in f32: the card against the CPU at W48-384x288 and
+    W32-256x192 for each interpolation, entered with both TF32 flags on;
+    fails if a facade's construction or ``predict`` changes a flag, if K2
+    and K3 do not run 8 times a call at a batch phase 2 checked in f32, or
+    if the TF32 control stays within the heatmap limit. Puts the flags
+    back as it found them. Returns the record and each call's launches."""
+    from simple_hrnet_tpu_torch.ops import image as I
+
+    resizers = {'cubic': I.resize_cubic, 'linear': I.resize_linear,
+                'bilinear_aa': I.resize_bilinear_aa}
+    want = {k: 8 if k in ('basic_chain', 'fuse_up') else 0 for k in counters}
+    found = tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    rgb = torch.from_numpy(np.ascontiguousarray(frame[..., ::-1]))
+    rec, launches = {}, {}
+    try:
+        for c, res, batches in SINGLE_F32:
+            card = single_facade(c, res, pths[c])
+            cpu = single_facade(c, res, pths[c], device='cpu')
+            seen = []
+            hook = card.model.register_forward_pre_hook(
+                lambda _m, args: seen.append(args[0].shape[0]))
+            for interp in SINGLE_INTERPOLATIONS:
+                what = f'phase 7 f32 W{c} {interp}'
+                for m in (card, cpu):  # the runners read it when built
+                    m.interpolation = interp
+                    m._single_runs.clear()
+                for k in counters.values():
+                    k.launches = 0
+                forwards = len(seen)
+                hm, bx, pts = card.predict(frame)
+                torch.cuda.synchronize()
+                run = {k: f.launches for k, f in counters.items()}
+                launches[f'single_f32_w{c}_{interp}'] = run
+                if tf32_flags() != (True, True):
+                    raise AssertionError(f'phase 7: the facade changed the '
+                                         f'TF32 flags to {tf32_flags()}')
+                if run != want or len(seen) - forwards != 1 or \
+                        not set(seen) <= set(batches):
+                    raise AssertionError(
+                        f'{what}: launches {run} (want {want}), '
+                        f'{len(seen) - forwards} pose forwards at batches '
+                        f'{sorted(set(seen))}; phase 2 checked {batches}')
+                chm, cbx, cpts = cpu.predict(frame)
+                pc, ph = (torch.clamp(torch.round(resizers[interp](
+                    rgb.to(d), res)), 0.0, 255.0).cpu() for d in (dev, 'cpu'))
+                flips = int((pc != ph).sum())
+                frame_err = float((pc - ph).abs().max())
+                if frame_err > 1.0 or not np.array_equal(bx, cbx) or \
+                        hm.shape != chm.shape:
+                    raise AssertionError(f'{what}: rounded frames {frame_err}'
+                                         f' apart, boxes {bx} / {cbx}, '
+                                         f'heatmaps {hm.shape} / '
+                                         f'{chm.shape}')
+                response = 0.0
+                if flips:
+                    single = card._single(res, 1)
+                    a, b = (single(x.to(dev, torch.uint8)[None])[0]
+                            for x in (pc, ph))
+                    response = (a - b).abs().permute(0, 3, 1, 2).cpu().numpy()
+                top = float(np.abs(chm).max())
+                limit = SINGLE_HM_TOL * top + response
+                diff = np.abs(hm - chm)
+                if not np.isfinite(hm).all() or (diff > limit).any():
+                    raise AssertionError(f'{what}: heatmaps differ by '
+                                         f'{diff.max()} ({diff.max() / top} '
+                                         f'of max; {flips} flipped counts)')
+                hm_err = float(diff.max())
+                control = np.abs(tf32_control(card, frame) - chm)
+                if tf32_flags() != (True, True) or \
+                        not (control > limit).any():
+                    raise AssertionError(
+                        f'{what}: the TF32 control read {control.max() / top}'
+                        f' of max, within the limit {SINGLE_HM_TOL}; flags '
+                        f'{tf32_flags()}')
+                two = np.sort(chm.reshape(1, 17, -1), axis=-1)[..., -2:]
+                clear = (two[..., 1] - two[..., 0]) > 4 * hm_err
+                xy_err = float(np.abs(pts[clear][:, :2]
+                                      - cpts[clear][:, :2]).max()) \
+                    if clear.any() else 0.0
+                if xy_err > 1e-3 or not clear.any():
+                    raise AssertionError(f'{what}: keypoints differ by '
+                                         f'{xy_err} px ({int(clear.sum())} '
+                                         f'compared)')
+                rec[f'w{c}_{interp}'] = dict(
+                    frame_flips=flips, frame_max_err=frame_err,
+                    heatmap_err=hm_err, heatmap_rel_err=hm_err / top,
+                    tf32_control_rel_err=float(control.max()) / top,
+                    keypoints_compared=int(clear.sum()),
+                    keypoints_left_out=int(clear.size - clear.sum()),
+                    keypoint_xy_err=xy_err, launches=run)
+                print(f'{what} card vs CPU (TF32 flags on, left on): '
+                      f'rounded frames {flips} counts apart (max '
+                      f'{frame_err:.0f}); heatmaps {hm_err:.2e} '
+                      f'({hm_err / top:.2e} of max, tol {SINGLE_HM_TOL:.0e}'
+                      f'; TF32 control {control.max() / top:.2e}); '
+                      f'keypoints {int(clear.sum())} compared '
+                      f'({xy_err:.2e} px); launches {run}', flush=True)
+            hook.remove()
+            rec[f'w{c}_pose_batches'] = sorted(set(seen))
+            del card, cpu
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = found
+    return rec, launches
+
+
+def check_single_plain(pth, frame, counters):
+    """``use_fused_kernels=False`` at W48-384x288 f32 against the kernel
+    facade on the card, one frame: heatmaps within phase 3's limit (1e-3 of
+    max), no port kernel launched in the plain graph, the chain and the
+    fuse 8 times each in the kernel one."""
+    outs, launches = {}, {}
+    for name, fused in (('kernels', True), ('plain', False)):
+        model = single_facade(*SINGLE_W48, pth, use_fused_kernels=fused)
+        for k in counters.values():
+            k.launches = 0
+        outs[name] = model.predict(frame)
+        torch.cuda.synchronize()
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        del model
+    want = {k: 8 if k in ('basic_chain', 'fuse_up') else 0 for k in counters}
+    if launches['kernels'] != want or any(launches['plain'].values()):
+        raise AssertionError(f'phase 7 plain graph: launches {launches}')
+    err, rel = rel_err(torch.from_numpy(outs['plain'][0]),
+                       torch.from_numpy(outs['kernels'][0]))
+    if rel > 1e-3:
+        raise AssertionError(f'phase 7 plain graph against the kernels: max '
+                             f'err {err} ({rel} of max) > 1e-3')
+    print(f'phase 7 use_fused_kernels=False, W48 f32: heatmaps {err:.3e} '
+          f'({rel:.3e} of max, tol 1e-3) from the kernel facade; launches '
+          f'plain {launches["plain"]}, kernels {launches["kernels"]}',
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(heatmap_err=err, heatmap_rel_err=rel, launches=launches)
+
+
+def run_single_predict(path, pth, frames, counters):
+    """Phase 7's ``predict`` on one path: on 1 and 8 frames (or 1), launch
+    counts set to 0 just before each call and read just after (K1 never,
+    the path's chain and K3 8 times a pose forward, one pose forward a
+    call, at batches phase 2 checked), shapes and finite outputs; timed,
+    and the 8-frame call profiled. Returns the launches and the record."""
+    name, c, res, dtype, chain, batches, counts = path
+    model = single_facade(c, res, pth, dtype)
+    seen = []
+    hook = model.model.register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0].shape[0]))
+    hm_hw = (res[0] // 4, res[1] // 4)
+    launches = {}
+    try:
+        for n in counts:
+            arg = frames[0] if n == 1 else frames[:n]
+            for k in counters.values():
+                k.launches = 0
+            forwards = len(seen)
+            hm, bx, pts = model.predict(arg)
+            torch.cuda.synchronize()
+            launches[n] = {k: f.launches for k, f in counters.items()}
+            want = {k: 8 if k in (chain, 'fuse_up') else 0 for k in counters}
+            shapes = ((n, 17, *hm_hw), (n, 4),
+                      (1, 17, 3) if n == 1 else (n, 1, 17, 3))
+            if len(seen) - forwards != 1 or launches[n] != want or \
+                    (hm.shape, bx.shape, pts.shape) != shapes or \
+                    not (np.isfinite(hm).all() and np.isfinite(pts).all()):
+                raise AssertionError(
+                    f'phase 7 [{name}] {n} frames: {len(seen) - forwards} '
+                    f'pose forwards, launches {launches[n]} (want {want}), '
+                    f'shapes {hm.shape} {bx.shape} {pts.shape}')
+    finally:
+        hook.remove()
+    if not set(seen) <= set(batches):
+        raise AssertionError(f'phase 7 [{name}]: the pose model ran at '
+                             f'batches {sorted(set(seen))}; phase 2 checked '
+                             f'the kernels at {batches}')
+    model.return_heatmaps = model.return_bounding_boxes = False
+    t = {}
+    for n in counts:
+        arg = frames[0] if n == 1 else frames[:n]
+        model.predict(arg)
+        torch.cuda.synchronize()
+        t[n] = 1e3 * float(np.median(host_s(lambda: model.predict(arg),
+                                            SINGLE_REPS[n])))
+    rec = dict(pose_batches=seen, launches={str(n): v for n, v in
+                                            launches.items()},
+               predict_ms={str(n): v for n, v in t.items()})
+    if 8 in counts:
+        busy, top, port = profile_predict(f'phase 7 [{name}]', model,
+                                          frames[:8])
+        rec.update(stack8_device_busy_ms=busy, stack8_top_device_ms=top,
+                   stack8_port_kernels=port,
+                   stack8_idle_share=1.0 - busy / t[8])
+    print(f'phase 7 [{name}]: W{c}-{res[0]}x{res[1]} {dtype}, launches per '
+          f'predict ' + '; '.join(f'{n} frame{"s" if n > 1 else ""} '
+                                  f'{launches[n]}' for n in counts) +
+          '; predict ' + ', '.join(f'{n} frame{"s" if n > 1 else ""} '
+                                   f'{t[n]:.1f} ms ({1e3 * n / t[n]:.2f} '
+                                   f'frames/s)' for n in counts) +
+          (f'; 8 frames device busy {rec["stack8_device_busy_ms"]:.2f} ms, '
+           f'idle share {100 * rec["stack8_idle_share"]:.1f}%'
+           if 8 in counts else ''), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def run_single_stream(pth, counters):
+    """The single-person ``predict_stream`` at W48-384x288 bf16 after
+    ``warmup``, over STREAM_TIME_FRAMES frames (``smooth_frames(16)``
+    looped): a first run checked as phase 5 checks its runs (no K1, the
+    chain and the fuse 8 times a frame, every upload and runner call
+    guarded), then timed as phase 5 times its modes."""
+    model = single_facade(*SINGLE_W48, pth, 'bfloat16')
+    model.return_heatmaps = model.return_bounding_boxes = False
+    t0 = time.perf_counter()
+    sizes = model.warmup((480, 640), batch_sizes=(1,))
+    warm_s = time.perf_counter() - t0
+    frames = list(smooth_frames(16)) * (STREAM_TIME_FRAMES // 16)
+    out, record = drive_stream(model, frames, {}, counters)
+    if len(out) != len(frames) or record['pose_batches'] != [1] * len(out) \
+            or not all(o.shape == (1, 17, 3) and np.isfinite(o).all()
+                       for o in out):
+        raise AssertionError(f'phase 7 stream: {len(out)} frames, pose '
+                             f'batches {sorted(set(record["pose_batches"]))}')
+    print(f'phase 7 stream (W48-384x288 bf16, warmup {warm_s:.1f} s, '
+          f'runner caches {sizes}): launches {record["launches"]} over '
+          f'{len(out)} frames; guarded dispatch calls '
+          f'{record["guarded_calls"]}', flush=True)
+    timing = time_frames(
+        'phase 7 stream timing', lambda: list(model.predict_stream(frames)),
+        lambda: list(model.predict_stream(frames[:STREAM_PROFILE_FRAMES])),
+        len(frames), STREAM_PROFILE_FRAMES)
+    del model
+    torch.cuda.empty_cache()
+    return record, dict(warmup_s=warm_s, runner_caches=sizes,
+                        launches=record['launches'],
+                        guarded_calls=record['guarded_calls'], **timing)
+
+
+def run_single_phase(dev, pths, counters):
+    """Phase 7: the single-person path (see the module docstring). Returns
+    each run's launches and the phase's record."""
+    t0 = time.perf_counter()
+    frames = smooth_frames(8)
+    w48 = pths[SINGLE_W48[0]]
+    summary, launches = {}, {}
+    summary['f32_card_vs_cpu'], launches = check_single_f32(
+        dev, pths, frames[0], counters)
+    summary['plain_graph'] = check_single_plain(w48, frames[0], counters)
+    for path in SINGLE_PATHS:
+        runs, summary[path[0]] = run_single_predict(path, pths[path[1]],
+                                                    frames, counters)
+        launches.update({f'single_{path[0]}_{n}': v for n, v in runs.items()})
+    record, summary['stream_bf16'] = run_single_stream(w48, counters)
+    launches['single_stream_bf16'] = record['launches']
+    summary['seconds'] = time.perf_counter() - t0
+    print(f'phase 7: {summary["seconds"]:.1f} s', flush=True)
+    return launches, summary
+
 
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1621,6 +1994,9 @@ def main():
             v5_launches, summary['poseresnet_yolov5'] = run_v5_phase(
                 tmp, counters)
             stream_launches.update(v5_launches)
+            single_launches, summary['single_person'] = run_single_phase(
+                dev, pths, counters)
+            stream_launches.update(single_launches)
             for run, launches in stream_launches.items():
                 for k in counters:
                     totals[k] += launches[k]

@@ -1,9 +1,10 @@
-"""SimpleHRNet — the multi-person inference facade, in PyTorch on CUDA.
+"""SimpleHRNet — the pose inference facade, in PyTorch on CUDA.
 
-Counterpart of ``simple_hrnet_tpu/api.py`` for ``multiperson=True``:
-``model_name`` 'HRNet' or 'PoseResNet' (ResNet-18/34/50/101/152, ``c`` the
-ResNet size), ``yolo_version`` 'v3' (YOLOv3 / YOLOv3-tiny) or 'v5'
-(YOLOv5 n/s/m/l/x), and ``dtype`` None (f32), 'bfloat16' or 'int8'
+Counterpart of ``simple_hrnet_tpu/api.py``: ``model_name`` 'HRNet' or
+'PoseResNet' (ResNet-18/34/50/101/152, ``c`` the ResNet size),
+``multiperson`` True (a detector: ``yolo_version`` 'v3', YOLOv3 /
+YOLOv3-tiny, or 'v5', YOLOv5 n/s/m/l/x) or False (whole-frame single
+person, no detector), and ``dtype`` None (f32), 'bfloat16' or 'int8'
 (post-training quantization of the pose model and of YOLOv3, with
 ``calibration_images`` and ``int8_exclude``; YOLOv5 stays bf16, the JAX
 package's policy). ``predict(image)`` keeps the reference's contract (one
@@ -11,14 +12,20 @@ HWC BGR frame or an NHWC stack; (people, joints, 3) arrays of (y, x,
 conf), optionally preceded by heatmaps and bounding boxes).
 
 Pipeline, all on the device: each frame is uploaded once as uint8 and
-flipped BGR -> RGB there; the detector finds people (NMS kernel K1); the
-valid (frame, box) pairs are compacted frame-major by a stable argsort; a
-power-of-two bucket of them is aspect-padded, PIL-exact cropped,
-normalized, posed and argmax-decoded. HRNet runs a branch-0 chain kernel
-(K2, the Winograd chain B3 or the int8 chain B4) and K3 in every stage
-module; PoseResNet runs cuDNN convs and transposed convs, as the JAX
-package runs it in XLA. The first host read is the people count, after
-the first pose batch.
+flipped BGR -> RGB there. Multi-person: the detector finds people (NMS
+kernel K1); the valid (frame, box) pairs are compacted frame-major by a
+stable argsort; a power-of-two bucket of them is aspect-padded, PIL-exact
+cropped, normalized, posed and argmax-decoded. The first host read is the
+people count, after the first pose batch. Single-person: the whole frame
+is resized to the model resolution by ``interpolation`` (cv2 bicubic,
+cv2 bilinear or PIL's antialiased bilinear, as f32 matmuls), rounded,
+normalized, posed and decoded against the whole-frame box. HRNet runs a
+branch-0 chain kernel (K2, the Winograd chain B3 or the int8 chain B4)
+and K3 in every stage module, unless ``use_fused_kernels=False`` asks for
+the plain graph; PoseResNet runs cuDNN convs and transposed convs, as the
+JAX package runs it in XLA. f32 work runs in true f32 (TF32 off) inside
+each call, and PyTorch's TF32 flags are put back as found
+(``utils/device.true_f32``).
 
 ``predict_stream`` (fixed-slot, chunked, adaptive and compact modes) and
 ``warmup`` are the JAX facade's video entry points. A stream launch copies
@@ -50,7 +57,8 @@ from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import decode as D
 from simple_hrnet_tpu_torch.ops import image as I
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
-from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
+from simple_hrnet_tpu_torch.utils.device import (host_to_device,
+                                                 resolve_device, true_f32)
 
 
 HRNET_NAMES = ('HRNet', 'hrnet')
@@ -143,10 +151,13 @@ class _SlotController:
             self.counts.clear()
 
 
+@true_f32()
 def _pose_tail(model, crops: torch.Tensor, padded_boxes: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """uint8-rounded crops -> ImageNet normalize -> pose model -> argmax decode
-    into the padded-box frame coordinates (SimpleHRNet.py:279-296)."""
+    """Crops (or whole frames) rounded and clipped to uint8 values ->
+    ImageNet normalize -> pose model -> argmax decode into the boxes' frame
+    coordinates (SimpleHRNet.py:279-296), in true f32. The round is the
+    identity on frames that were not resized."""
     x = I.normalize(torch.clamp(torch.round(crops), 0.0, 255.0))
     hm = model(x)
     return hm, D.argmax_decode(hm, padded_boxes)
@@ -158,14 +169,17 @@ def _not_ported(what: str):
 
 
 class SimpleHRNet:
-    """Multi-person 2D pose estimation on an NVIDIA GPU.
+    """2D pose estimation, multi-person or whole-frame single-person, on an
+    NVIDIA GPU.
 
     Args mirror the JAX facade. ``model_name``: 'HRNet' (``c`` the width)
     or 'PoseResNet' ('poseresnet', 'ResNet', 'resnet'; ``c`` the ResNet
     size); ``yolo_version``: 'v3' (``yolo_model_def`` 'yolov3' or
     'yolov3-tiny', ``yolo_weights_path``) or 'v5' (``yolo_model_def`` an
     ultralytics ``.pt`` or a variant name; anything else is a random
-    yolov5m, as in the JAX facade). ``device``: 'cuda' (default; raises
+    yolov5m, as in the JAX facade); with ``multiperson=False`` no detector
+    is built (``self.detector`` is None) and the yolo arguments are not
+    looked at, as in the JAX facade. ``device``: 'cuda' (default; raises
     without a card) or 'cpu'. ``dtype``: None (f32), 'bfloat16' (pose and
     detector convs in bf16, heatmap head f32) or 'int8': TensorRT-style
     post-training quantization (``models/quantize.py``) of the pose model
@@ -176,10 +190,14 @@ class SimpleHRNet:
     calibrate the activation scales instead of smooth synthetic frames;
     ``int8_exclude`` (dotted path prefixes such as ('stage4',)) keeps
     those convs bf16. Both raise ``ValueError`` without int8. HRNet's
-    branch-0 chain and high-res fusion always run through the CUDA kernels
-    on the card (``use_fused_kernels=False`` raises). ``interpolation`` is
-    validated as in the JAX facade; multi-person crops always use the
-    PIL-exact resampler there too.
+    branch-0 chain and high-res fusion run through the CUDA kernels on the
+    card; ``use_fused_kernels=False`` runs HRNet's plain graph instead (the
+    JAX facade's, api.py:310-314: every stage module as plain blocks and
+    fusion; under int8 the branch-0 convs are ``QConv2d`` modules and no
+    chain kernel runs). ``interpolation`` ('cubic'/None/2, 'linear'/
+    'bilinear'/1 or 'bilinear_aa') is the single-person whole-frame
+    resize; multi-person crops always use the PIL-exact resampler, as in
+    the JAX facade.
     """
 
     def __init__(self,
@@ -216,14 +234,11 @@ class SimpleHRNet:
         self.calibration_images = calibration_images
         if model_name not in HRNET_NAMES + POSERESNET_NAMES:
             raise ValueError('Wrong model name.')
-        if not multiperson:
-            raise _not_ported('multiperson=False (the single-person path)')
-        if yolo_version not in ('v3', 'v5'):
+        # the JAX facade looks at yolo_version only with a detector
+        if multiperson and yolo_version not in ('v3', 'v5'):
             raise ValueError('Unsupported YOLO version.')
         if enable_tensorrt or checkpoint_path.endswith('.jaxpose'):
             raise _not_ported('engine export / enable_tensorrt')
-        if not use_fused_kernels:
-            raise _not_ported('use_fused_kernels=False')
         if mesh is not None:
             raise _not_ported('mesh (multi-device inference)')
         if dtype not in (None, 'bfloat16', 'bf16', 'int8'):
@@ -245,14 +260,13 @@ class SimpleHRNet:
         self.quantize_int8 = dtype == 'int8'
         self.dtype = torch.bfloat16 if dtype in ('bfloat16', 'bf16', 'int8') \
             else torch.float32
-        if self.device.type == 'cuda':
-            # true f32 where f32 is computed: the crops' matmuls and f32
-            # convs (cuDNN would otherwise run f32 convs in TF32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
 
         if model_name in HRNET_NAMES:
-            net, prepare = hrnet.HRNet(c, nof_joints), hrnet.prepare_inference
+            net = hrnet.HRNet(c, nof_joints)
+
+            def prepare(model, dtype, amax):
+                return hrnet.prepare_inference(model, dtype, amax=amax,
+                                               kernels=use_fused_kernels)
         else:
             net = poseresnet.PoseResNet(c, nof_joints)
             prepare = poseresnet.prepare_inference
@@ -270,19 +284,21 @@ class SimpleHRNet:
 
         det_dtype = 'int8' if self.quantize_int8 else \
             None if self.dtype == torch.float32 else 'bfloat16'
-        if yolo_version == 'v3':
+        self.detector = None
+        if multiperson and yolo_version == 'v3':
             self.detector = YOLOv3(model_def=yolo_model_def,
                                    class_path=yolo_class_path,
                                    weights_path=yolo_weights_path,
                                    max_batch_size=max_batch_size,
                                    max_detections=yolo_max_detections,
                                    device=self.device, dtype=det_dtype)
-        else:
+        elif multiperson:
             self.detector = YOLOv5(model_def=yolo_model_def,
                                    max_batch_size=max_batch_size,
                                    max_detections=yolo_max_detections,
                                    device=self.device, dtype=det_dtype)
         # runner caches, keyed as the JAX facade keys its jit caches
+        self._single_runs: Dict[tuple, Callable] = {}
         self._gather_runs: Dict[tuple, Callable] = {}
         self._fused_runs: Dict[tuple, Callable] = {}
 
@@ -319,7 +335,45 @@ class SimpleHRNet:
     # the device, queues kernels and returns tensors on the device, with no
     # host read and no stream synchronization inside. Runners are cached
     # under the JAX facade's jit-cache keys (its api.py:414-416), so
-    # ``warmup`` reports the same counts.
+    # ``warmup`` reports the same counts. The pose model runs under
+    # ``true_f32`` in ``_pose_tail``; the detector's ``detect_padded`` and
+    # the resizers enter it themselves.
+
+    def _single(self, in_hw: Tuple[int, int], batch: int) -> Callable:
+        """The whole-frame runner of ``multiperson=False`` (JAX
+        ``_get_single``) for ``batch`` frames of ``in_hw``:
+        ``run(frames_rgb)`` takes (batch, H, W, 3) RGB uint8 frames on the
+        device, resizes them to the model resolution by ``interpolation``
+        (when their size differs), rounds and clips to [0, 255] as the
+        reference's uint8 resize does, normalizes, poses and decodes
+        against the whole-frame box [0, 0, W, H]; it returns the heatmaps
+        (batch, h, w, J) and keypoints (batch, J, 3)."""
+        in_hw = (int(in_hw[0]), int(in_hw[1]))
+        key = (in_hw, batch)
+        if key in self._single_runs:
+            return self._single_runs[key]
+        res_hw = self.resolution
+        model = self.model
+        resize = None
+        if res_hw != in_hw:
+            resize = (I.resize_bilinear_aa
+                      if self.interpolation == 'bilinear_aa' else
+                      I.resize_linear
+                      if self.interpolation in ('linear', 'bilinear', 1)
+                      else I.resize_cubic)
+        boxes = host_to_device(np.tile(np.asarray(
+            [0.0, 0.0, in_hw[1], in_hw[0]], np.float32), (batch, 1)),
+            self.device)
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor):
+            x = frames_rgb.float()
+            if resize is not None:
+                x = resize(x, res_hw)
+            return _pose_tail(model, x, boxes)
+
+        self._single_runs[key] = run
+        return run
 
     def _gather_crop(self, bucket: int, clamp_hw: Optional[tuple] = None
                      ) -> Callable:
@@ -607,9 +661,15 @@ class SimpleHRNet:
         buckets, the first sized from the previous window's total, with an
         idle tier after an all-empty window. Results equal the fixed-slot
         stream's; combining it with ``adaptive_slots`` is an error.
+
+        Without a detector (``multiperson=False``) each frame is one
+        whole-frame launch (``_single``), dispatched ``prefetch`` ahead;
+        ``max_people``, ``batch_frames`` and ``adaptive_slots`` are ignored
+        and ``compact_crops=True`` raises ``ValueError``, as in the JAX
+        facade.
         """
         if compact_crops:
-            if batch_frames <= 1:
+            if self.detector is None or batch_frames <= 1:
                 raise ValueError('compact_crops=True requires multiperson '
                                  'detection and batch_frames > 1')
             if adaptive_slots:
@@ -617,6 +677,9 @@ class SimpleHRNet:
                                  'batch to the scene; drop adaptive_slots')
             yield from self._stream_compact(frames, max_people, prefetch,
                                             batch_frames)
+            return
+        if self.detector is None:
+            yield from self._stream_single(frames, prefetch)
             return
         if adaptive_slots:
             yield from self._stream_adaptive(frames, max_people, prefetch,
@@ -641,6 +704,21 @@ class SimpleHRNet:
 
         yield from self._pipeline(frames, batch_frames, prefetch, dispatch,
                                   resolve)
+
+    def _stream_single(self, frames, prefetch: int):
+        """predict_stream without a detector (JAX ``predict_stream``'s
+        single-person branch): one ``_single`` launch a frame, dispatched
+        ``prefetch`` ahead; each result is ``predict(frame)``'s."""
+        def dispatch(frames_rgb, _n_real):
+            in_hw = tuple(frames_rgb.shape[1:3])
+            return self._single(in_hw, 1)(frames_rgb), in_hw
+
+        def resolve(entry):
+            out, in_hw = entry
+            _, _, hm, pts = self._host(None, None, *out)
+            return [self._finish_single(hm, pts, in_hw)]
+
+        yield from self._pipeline(frames, 1, prefetch, dispatch, resolve)
 
     def _stream_adaptive(self, frames, cap: int, prefetch: int,
                          batch_frames: int, slot_window: int):
@@ -758,9 +836,11 @@ class SimpleHRNet:
         ``stream_batch_frames``: cuDNN's algorithm choices and the caching
         allocators are warm afterwards.
 
+        Without a detector (``multiperson=False``) only ``predict`` runs
+        (the stream's runner is ``predict``'s one-frame runner).
+
         Returns {'single': n, 'gather': n, 'fused': n}, the sizes of the
-        runner caches ('single' is 0: the single-person path, which has
-        that cache in the JAX facade, is not ported).
+        runner caches.
         """
         if self.device.type == 'cuda':
             from simple_hrnet_tpu_torch.ops.cuda import build
@@ -773,7 +853,7 @@ class SimpleHRNet:
         for b in batch_sizes:
             dummy = np.zeros((b, h, w, 3), np.uint8)
             self.predict(dummy[0] if b == 1 else dummy)
-        if stream_max_people is not None:
+        if stream_max_people is not None and self.detector is not None:
             compact_cap = None
             if isinstance(stream_max_people, int):
                 slot_counts = [stream_max_people]
@@ -815,7 +895,8 @@ class SimpleHRNet:
                         self._fused_frames((h, w), slots, nf)(zeros(nf))
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        return {'single': 0, 'gather': len(self._gather_runs),
+        return {'single': len(self._single_runs),
+                'gather': len(self._gather_runs),
                 'fused': len(self._fused_runs)}
 
     def predict(self, image: np.ndarray):
@@ -841,9 +922,25 @@ class SimpleHRNet:
         res.append(pts)
         return res if len(res) > 1 else res[0]
 
+    def _finish_single(self, hm, pts, in_hw, stacked: bool = False):
+        """The single-person result from host arrays (heatmaps (n, h, w, J)
+        or None, keypoints (n, J, 3)) in the JAX facade's shapes and
+        dtypes: heatmaps (n, J, h, w), boxes (n, 4) float32 [0, 0, W, H],
+        keypoints (n, J, 3) for one frame or (n, 1, J, 3) for a stack."""
+        heatmaps = None if hm is None else np.transpose(hm, (0, 3, 1, 2))
+        boxes = np.repeat(np.asarray([[0, 0, in_hw[1], in_hw[0]]],
+                                     np.float32), pts.shape[0], axis=0)
+        pts = pts.astype(np.float32)
+        return self._assemble(heatmaps, boxes, pts[:, None] if stacked
+                              else pts)
+
     def _predict_single(self, image: np.ndarray):
-        hm_h, hm_w = self.resolution[0] // 4, self.resolution[1] // 4
         frames = self._upload(image[None])
+        if self.detector is None:
+            out = self._single(image.shape[:2], 1)(frames)
+            _, _, hm, pts = self._host(None, None, *out)
+            return self._finish_single(hm, pts, image.shape[:2])
+        hm_h, hm_w = self.resolution[0] // 4, self.resolution[1] // 4
         rows, valid = self.detector.detect_padded(frames)
         counts, hm_all, boxes_all, pts_all = self._run_gathered(
             frames, rows, valid, clamp_hw=None)
@@ -859,6 +956,11 @@ class SimpleHRNet:
     def _predict_batch(self, images: np.ndarray):
         n_img = images.shape[0]
         frames = self._upload(images)
+        if self.detector is None:
+            out = self._single(images.shape[1:3], n_img)(frames)
+            _, _, hm, pts = self._host(None, None, *out)
+            return self._finish_single(hm, pts, images.shape[1:3],
+                                       stacked=True)
         rows, valid = self.detector.detect_padded(frames)
         # the reference's batch path clamps the grown boxes to the frame
         # (SimpleHRNet.py:393-410)

@@ -23,7 +23,8 @@ from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import image as I
 from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
-from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
+from simple_hrnet_tpu_torch.utils.device import (host_to_device,
+                                                 resolve_device, true_f32)
 
 # COCO class names index 0 == person (the default filter)
 PERSON_CLASS_ID = 0
@@ -125,9 +126,13 @@ class PersonDetector:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
+    @true_f32()
     def detect_padded(self, frames_rgb) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, H, W, 3) RGB frames (numpy or tensor) -> padded rows and
-        validity on the device, in chunks of ``max_batch_size`` frames."""
+        validity on the device, in chunks of ``max_batch_size`` frames. The
+        detector's one device entry (``predict`` and ``predict_single``
+        reach it too): its f32 letterbox and convs run in true f32, and
+        the caller's TF32 flags are left as found."""
         frames = torch.as_tensor(frames_rgb, device=self.device)
         parts = [self._detect(frames[s:s + self.max_batch_size])
                  for s in range(0, frames.shape[0], self.max_batch_size)]

@@ -29,6 +29,7 @@ import torch.nn as nn
 
 from simple_hrnet_tpu_torch.models.layers import QConv2d
 from simple_hrnet_tpu_torch.ops.int8 import quantize_weight
+from simple_hrnet_tpu_torch.utils.device import true_f32
 
 
 def default_policy(kernel_shape) -> bool:
@@ -61,18 +62,13 @@ def calibrate(model: nn.Module, batches: Iterable, forward: Optional[
 
     hooks = [m.register_forward_pre_hook(record(name))
              for name, m in model.named_modules() if isinstance(m, types)]
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for b in batches:
-            forward(b)
+        with true_f32():
+            for b in batches:
+                forward(b)
     finally:
         for h in hooks:
             h.remove()
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
     return amax
 
 

@@ -1,12 +1,14 @@
-"""Device image preprocessing for the multi-person path, in PyTorch.
+"""Device image preprocessing, in PyTorch.
 
-Counterpart of ``simple_hrnet_tpu/ops/image.py`` for what multi-person
-``predict`` runs: the ImageNet ``normalize`` convention, the cv2-exact
-bilinear resize of the detector's letterbox, the PIL-exact person crop and
+Counterpart of ``simple_hrnet_tpu/ops/image.py`` for what ``predict``
+runs: the ImageNet ``normalize`` convention; the whole-frame resizers —
+cv2-exact bilinear (the detector's letterbox, and the single-person path's
+'linear'), cv2-exact bicubic (the single-person default, 'cubic') and
+PIL's antialiased bilinear ('bilinear_aa'); the PIL-exact person crop and
 the aspect padding of the detection boxes. The resamplers are dense
-matmuls, as in the JAX package (which left them to XLA). The letterbox
-runs in f32 with TF32 off (``torch.backends.cuda.matmul.allow_tf32``,
-PyTorch's default); the PIL crop runs in f64, where it is exact (see
+matmuls, as in the JAX package (which left them to XLA, outside any Pallas
+kernel). The whole-frame resizers run in true f32 (``utils/device
+.true_f32``: TF32 off); the PIL crop runs in f64, where it is exact (see
 ``crop_resize_pil``).
 """
 
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from simple_hrnet_tpu_torch.utils.device import host_to_device
+from simple_hrnet_tpu_torch.utils.device import host_to_device, true_f32
 
 # ImageNet statistics (reference SimpleHRNet.py:152, 171); copies of the
 # JAX package's constants, built with the same f32 roundings.
@@ -60,21 +62,91 @@ def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
+def _cubic_weights(in_size: int, out_size: int, a: float = -0.75
+                   ) -> np.ndarray:
+    """Dense (out, in) bicubic matrix with cv2's kernel (a = -0.75) and
+    border clamping — cv2.resize INTER_CUBIC arithmetic."""
+    scale = in_size / out_size
+    w = np.zeros((out_size, in_size), np.float32)
+    for i in range(out_size):
+        src = (i + 0.5) * scale - 0.5
+        base = int(np.floor(src))
+        frac = src - base
+        for t in range(-1, 3):
+            d = abs(frac - t)
+            if d <= 1:
+                k = (a + 2) * d ** 3 - (a + 3) * d ** 2 + 1
+            elif d < 2:
+                k = a * d ** 3 - 5 * a * d ** 2 + 8 * a * d - 4 * a
+            else:
+                k = 0.0
+            w[i, min(max(base + t, 0), in_size - 1)] += k
+    return w
+
+
+def _linear_aa_weights(in_size: int, out_size: int) -> np.ndarray:
+    """Dense (out, in) antialiased bilinear matrix: Pillow's
+    ``precompute_coeffs`` for the triangle filter (the kernel widens by the
+    downscale factor, weights normalized per output pixel, window bounds
+    by ``int(x + 0.5)``); plain half-pixel bilinear on upscales."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # bilinear filter support = 1.0
+    w = np.zeros((out_size, in_size), np.float64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        xs = np.arange(xmin, xmax)
+        k = 1.0 - np.abs((xs - center + 0.5) / filterscale)
+        k = np.maximum(k, 0.0)
+        s = k.sum()
+        if s != 0.0:
+            k /= s
+        w[i, xmin:xmax] = k
+    return w.astype(np.float32)
+
+
+_WEIGHTS = {'linear': _linear_weights, 'cubic': _cubic_weights,
+            'bilinear_aa': _linear_aa_weights}
+
+
 @functools.lru_cache(maxsize=64)
-def _linear_weights_on(in_size: int, out_size: int,
-                       device: torch.device) -> torch.Tensor:
-    """``_linear_weights`` on ``device``, copied there once per shape."""
-    return host_to_device(_linear_weights(in_size, out_size), device)
+def _weights_on(kind: str, in_size: int, out_size: int,
+                device: torch.device) -> torch.Tensor:
+    """``_WEIGHTS[kind]`` on ``device``, copied there once per shape."""
+    return host_to_device(_WEIGHTS[kind](in_size, out_size), device)
+
+
+def _resize(image: torch.Tensor, out_hw: Tuple[int, int], kind: str
+            ) -> torch.Tensor:
+    """(..., H, W, C) resized to ``out_hw`` by two dense f32 matmuls with
+    the ``kind`` weights: rows, then columns."""
+    wh = _weights_on(kind, image.shape[-3], out_hw[0], image.device)
+    ww = _weights_on(kind, image.shape[-2], out_hw[1], image.device)
+    with true_f32():
+        x = torch.einsum('oh,...hwc->...owc', wh, image.float())
+        return torch.einsum('pw,...hwc->...hpc', ww, x)
 
 
 def resize_linear(image: torch.Tensor, out_hw: Tuple[int, int]
                   ) -> torch.Tensor:
-    """cv2.INTER_LINEAR-equivalent resize of (..., H, W, C) as two dense
-    matmuls, in f32."""
-    wh = _linear_weights_on(image.shape[-3], out_hw[0], image.device)
-    ww = _linear_weights_on(image.shape[-2], out_hw[1], image.device)
-    x = torch.einsum('oh,...hwc->...owc', wh, image.float())
-    return torch.einsum('pw,...hwc->...hpc', ww, x)
+    """cv2.INTER_LINEAR-equivalent resize of (..., H, W, C), in f32."""
+    return _resize(image, out_hw, 'linear')
+
+
+def resize_cubic(image: torch.Tensor, out_hw: Tuple[int, int]
+                 ) -> torch.Tensor:
+    """cv2.INTER_CUBIC-equivalent resize of (..., H, W, C), in f32: the
+    single-person path's default (reference SimpleHRNet.py:216-220)."""
+    return _resize(image, out_hw, 'cubic')
+
+
+def resize_bilinear_aa(image: torch.Tensor, out_hw: Tuple[int, int]
+                       ) -> torch.Tensor:
+    """PIL-equivalent antialiased bilinear resize of (..., H, W, C), in
+    f32 (``transforms.Resize`` on float images)."""
+    return _resize(image, out_hw, 'bilinear_aa')
 
 
 def _triangle_mass(lo: torch.Tensor, hi: torch.Tensor, center: torch.Tensor,

@@ -17,8 +17,8 @@ from typing import Dict, Iterator
 import torch
 
 # the facade's runner getters: each returns a runner (see api.py)
-RUNNER_GETTERS = ('_fused_frame', '_fused_frames', '_detect_rows',
-                  '_detect_counts', '_gather_crop')
+RUNNER_GETTERS = ('_single', '_fused_frame', '_fused_frames',
+                  '_detect_rows', '_detect_counts', '_gather_crop')
 
 
 def _strict(fn, calls: Dict[str, int], name: str):

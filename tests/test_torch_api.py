@@ -233,9 +233,8 @@ def test_whole_slice_matches_jax(facades):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(multiperson=False), dict(enable_tensorrt=True),
-    dict(mesh=object()), dict(yolo_class_path='coco.names'),
-    dict(yolo_model_def='my.cfg'), dict(use_fused_kernels=False)])
+    dict(enable_tensorrt=True), dict(mesh=object()),
+    dict(yolo_class_path='coco.names'), dict(yolo_model_def='my.cfg')])
 def test_unported_options_raise(tmp_path, kwargs):
     path = str(tmp_path / 'w8.pth')
     torch.save(TH.init(8, 17).state_dict(), path)

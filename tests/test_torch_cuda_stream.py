@@ -51,7 +51,7 @@ def facades(tmp_path_factory):
         pytest.skip('needs a CUDA device')
     path = str(tmp_path_factory.mktemp('ckpt') / 'pose_hrnet_w8.pth')
     torch.save(TH.init(8, 17, seed=0).state_dict(), path)
-    card = SimpleHRNet(8, 17, path, device='cuda', **KW)  # TF32 off
+    card = SimpleHRNet(8, 17, path, device='cuda', **KW)  # true f32
     cpu = SimpleHRNet(8, 17, path, device='cpu', **KW)
     card.detector, cpu.detector = VaryStub('cuda'), VaryStub()
     return card, cpu
