@@ -56,7 +56,7 @@ Phases (any failure exits nonzero):
      check. Then, in bf16 after ``warmup``, each mode over 128 frames
      (the 16 looped): a first run checked as above (launches, pose
      batches, guarded dispatch, people and finite keypoints), frames/s
-     from five timed runs (median, min, max) beside ``predict`` frame by
+     from three timed runs (median, min, max) beside ``predict`` frame by
      frame and on stacks of 4, and device busy time and idle share over
      the first 32 frames (one profiled run against three timed ones);
   6. the SimpleBaselines path: ``SimpleHRNet(50, 17, <.pth>,
@@ -91,7 +91,25 @@ Phases (any failure exits nonzero):
      forward a call, at batches phase 2 checked), timed and the 8-frame
      call profiled; the single-person ``predict_stream`` at W48 bf16 after
      ``warmup`` over 128 frames (the 16 looped), dispatch guarded, timed
-     and profiled as phase 5's modes.
+     and profiled as phase 5's modes;
+  8. the engine path (``utils/export.py``): four ``.torchpose`` engines
+     exported on the card from phase 4's seeded ``.pth`` files at batch 16
+     (W48-384x288 f32 with the kernels and with the plain graph, W48 bf16
+     with the kernels, W32-256x192 int8 with the kernels), each export and
+     first load timed. Through ``SimpleHRNet(..., enable_tensorrt=True,
+     multiperson=True)`` with the seeded YOLOv3-416, on the 8-frame stack in
+     f32: the kernel engine against the eager kernel facade and the plain
+     engine against ``use_fused_kernels=False`` (boxes equal, heatmaps
+     within phase 3's limit, keypoints where the peak is clear), launch
+     counts set to 0 just before each call and read just after (K1 once a
+     detect chunk; the chain and K3 8 times an engine call, none in the
+     plain graph; every engine call at batch 16). The bf16 W48 and int8 W32
+     engines run ``predict`` on 1 and 8 frames, counted the same way, timed
+     in turn with the eager facade of the same path (call for call, one
+     process state) and the 8-frame call profiled, printed beside those
+     and phase 4's eager numbers;
+     a chunked ``predict_stream`` from the bf16 engine after ``warmup``
+     runs as phase 5 runs its modes, dispatch guarded.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -1085,7 +1103,7 @@ STUB_CAP = 8
 # idle share comes from the window's first 32 frames (a profiled run of
 # 128 frames takes minutes to summarize), timed three times unprofiled.
 STREAM_TIME_FRAMES = 128
-STREAM_TIME_RUNS = 5
+STREAM_TIME_RUNS = 3
 STREAM_PROFILE_FRAMES = 32
 
 
@@ -1110,7 +1128,9 @@ def drive_stream(model, frames, kw, counters, per_pose=None,
         real_detect = det.detect_padded
         det.detect_padded = lambda f: (detects.append(f.shape[0]),
                                        real_detect(f))[1]
-    hook = model.model.register_forward_pre_hook(
+    # an engine facade's pose model is the exported program's module
+    pose = model.model if model.engine is None else model.engine.module
+    hook = pose.register_forward_pre_hook(
         lambda _m, args: seen.append(args[0].shape[0]))
     try:
         for k in counters.values():
@@ -1924,6 +1944,277 @@ def run_single_phase(dev, pths, counters):
     return launches, summary
 
 
+# phase 8: the engine path (utils/export.py), exported on the card from
+# phase 4's seeded .pth files at ENGINE_BATCH, a batch phase 2 checks the
+# kernels at: (name, width, resolution, export options, the chain the
+# engine must launch 8 times a call, None for the plain graph)
+ENGINE_BATCH = 16
+ENGINES = (
+    ('w48_f32_fused', 48, (384, 288), dict(fused=True), 'basic_chain'),
+    ('w48_f32_plain', 48, (384, 288), dict(fused=False), None),
+    ('w48_bf16_fused', 48, (384, 288), dict(fused=True, half=True),
+     'basic_chain'),
+    ('w32_int8_fused', 32, (256, 192), dict(fused=True, int8=True),
+     'int8_chain'),
+)
+# the f32 engines and the eager facade each must agree with: the fused one
+# with the kernel facade, the plain one with use_fused_kernels=False;
+# heatmaps within phase 3's limit (1e-3 of max, summation order), boxes
+# equal, keypoints within 1e-3 px where the heatmap peak clears its
+# runner-up by 4x the measured heatmap error
+ENGINE_F32 = (('w48_f32_fused', True), ('w48_f32_plain', False))
+ENGINE_HM_TOL = 1e-3
+# the timed engines, each beside phase 4's eager path of its width and type
+ENGINE_TIMED = (('w48_bf16_fused', 'w48_bf16', 'bfloat16'),
+                ('w32_int8_fused', 'w32_int8', 'int8'))
+ENGINE_REPS = {1: 5, 8: 5}
+
+
+def engine_facade(path, c, res, weights, **kw):
+    from simple_hrnet_tpu_torch import SimpleHRNet
+    return SimpleHRNet(c, 17, path, resolution=res, multiperson=True,
+                       yolo_model_def='yolov3', yolo_weights_path=weights,
+                       return_heatmaps=True, return_bounding_boxes=True,
+                       device='cuda', **kw)
+
+
+def engine_predict(what, model, arg, counters, chain):
+    """One ``predict`` of an engine facade with every kernel's count set to
+    0 just before and read just after: K1 once a detect chunk, the chain
+    and K3 8 times an engine call (never for the plain graph), every
+    engine call at ENGINE_BATCH. Returns the result, the launches and the
+    engine calls."""
+    seen = []
+    hook = model.engine.module.register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0].shape[0]))
+    n = 1 if arg.ndim == 3 else arg.shape[0]
+    try:
+        for k in counters.values():
+            k.launches = 0
+        out = model.predict(arg)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        hook.remove()
+    want = {k: 0 for k in counters}
+    want['nms'] = -(-n // model.max_batch_size)
+    if chain is not None:
+        want[chain] = want['fuse_up'] = 8 * len(seen)
+    if launches != want or not seen or set(seen) != {ENGINE_BATCH}:
+        raise AssertionError(f'{what}: launches {launches} (want {want}) '
+                             f'over engine calls at batches {seen}')
+    return out, launches, len(seen)
+
+
+def export_engines(tmp, pths):
+    """Each of ENGINES exported on the card; returns the paths and each
+    export's seconds and file size (the first load is timed where each
+    engine's facade is built)."""
+    from simple_hrnet_tpu_torch.utils.export import export_engine
+
+    paths, secs = {}, {}
+    for name, c, res, kw, _ in ENGINES:
+        t0 = time.perf_counter()
+        paths[name] = export_engine(os.path.join(tmp, f'{name}.torchpose'),
+                                    pths[c], c=c, resolution=res,
+                                    batch_size=ENGINE_BATCH, device='cuda',
+                                    **kw)
+        secs[name] = dict(export_s=time.perf_counter() - t0,
+                          file_mb=os.path.getsize(paths[name]) / 1e6)
+        print(f'phase 8 [{name}]: W{c}-{res[0]}x{res[1]} {kw} exported in '
+              f'{secs[name]["export_s"]:.1f} s ({secs[name]["file_mb"]:.1f} '
+              f'MB)', flush=True)
+        torch.cuda.empty_cache()
+    return paths, secs
+
+
+def load_engine_facade(name, paths, weights, **kw):
+    """The engine facade of ENGINES' ``name``, its build timed (the
+    engine's load: ``torch.export.load`` and the module); returns it, the
+    seconds and the exported graph's node count."""
+    _, c, res, _, _ = next(e for e in ENGINES if e[0] == name)
+    t0 = time.perf_counter()
+    model = engine_facade(paths[name], c, res, weights, **kw)
+    load_s = time.perf_counter() - t0
+    nodes = len(model.engine.program.graph.nodes)
+    print(f'phase 8 [{name}]: engine facade built in {load_s:.1f} s '
+          f'({nodes} graph nodes)', flush=True)
+    return model, load_s, nodes
+
+
+def check_engine_f32(paths, pths, weights, frames, counters):
+    """The f32 engines through ``SimpleHRNet(..., enable_tensorrt=True,
+    multiperson=True)`` on the 8-frame stack against their eager facades
+    (ENGINE_F32). Returns each run's launches and the record."""
+    from simple_hrnet_tpu_torch import SimpleHRNet
+
+    rec, runs = {}, {}
+    for name, fused in ENGINE_F32:
+        _, c, res, _, chain = next(e for e in ENGINES if e[0] == name)
+        model, load_s, nodes = load_engine_facade(name, paths, weights)
+        (hm, bx, pts), launches, calls = engine_predict(
+            f'phase 8 [{name}] f32', model, frames, counters, chain)
+        del model
+        ref = SimpleHRNet(c, 17, pths[c], resolution=res, multiperson=True,
+                          yolo_model_def='yolov3', yolo_weights_path=weights,
+                          return_heatmaps=True, return_bounding_boxes=True,
+                          device='cuda', use_fused_kernels=fused)
+        rhm, rbx, rpts = ref.predict(frames)
+        del ref
+        torch.cuda.empty_cache()
+        if [b.shape for b in bx] != [b.shape for b in rbx] or \
+                not all(np.array_equal(a, b) for a, b in zip(bx, rbx)):
+            raise AssertionError(f'phase 8 [{name}]: boxes differ from the '
+                                 f'eager facade')
+        hm, rhm = np.concatenate(hm), np.concatenate(rhm)
+        pts, rpts = np.concatenate(pts), np.concatenate(rpts)
+        top = float(np.abs(rhm).max())
+        err = float(np.abs(hm - rhm).max())
+        if not np.isfinite(hm).all() or err > ENGINE_HM_TOL * top or \
+                hm.shape[0] == 0:
+            raise AssertionError(f'phase 8 [{name}]: heatmaps {err} ('
+                                 f'{err / top} of max) from the eager '
+                                 f'facade, {hm.shape[0]} people')
+        two = np.sort(rhm.reshape(*rhm.shape[:2], -1), axis=-1)[..., -2:]
+        clear = (two[..., 1] - two[..., 0]) > 4 * err
+        xy_err = float(np.abs(pts[clear][:, :2] - rpts[clear][:, :2]).max()) \
+            if clear.any() else 0.0
+        if xy_err > 1e-3 or not clear.any():
+            raise AssertionError(f'phase 8 [{name}]: keypoints differ by '
+                                 f'{xy_err} px ({int(clear.sum())} compared)')
+        rec[name] = dict(load_s=load_s, graph_nodes=nodes,
+                         people=int(hm.shape[0]), engine_calls=calls,
+                         launches=launches, heatmap_err=err,
+                         heatmap_rel_err=err / top,
+                         keypoints_compared=int(clear.sum()),
+                         keypoints_left_out=int(clear.size - clear.sum()),
+                         keypoint_xy_err=xy_err)
+        runs[f'engine_{name}_8'] = launches
+        print(f'phase 8 [{name}] f32 engine facade vs eager '
+              f'(use_fused_kernels={fused}), 8 frames: {hm.shape[0]} people,'
+              f' boxes equal, heatmaps {err:.3e} ({err / top:.3e} of max, '
+              f'tol {ENGINE_HM_TOL:.0e}), keypoints {int(clear.sum())} '
+              f'compared ({xy_err:.2e} px); {calls} engine calls, launches '
+              f'{launches}', flush=True)
+    return runs, rec
+
+
+def time_engine(engine, paths, pths, weights, frames, counters, eager):
+    """``predict`` on 1 and 8 frames of an engine facade: launches checked
+    (``engine_predict``), host ms (median), the 8-frame call profiled.
+    The eager facade of the same path is built beside it and timed in
+    turn with it, call for call, so that both read the process and the
+    host in one state; phase 4's eager numbers are printed too."""
+    from simple_hrnet_tpu_torch import SimpleHRNet
+
+    name, eager_name, dtype = engine
+    _, c, res, _, chain = next(e for e in ENGINES if e[0] == name)
+    model, load_s, nodes = load_engine_facade(name, paths, weights,
+                                              dtype=dtype)
+    runs, calls = {}, {}
+    for n in (1, 8):
+        arg = frames[0] if n == 1 else frames
+        _, runs[f'engine_{name}_{n}'], calls[n] = engine_predict(
+            f'phase 8 [{name}] {n} frames', model, arg, counters, chain)
+    ref = SimpleHRNet(c, 17, pths[c], resolution=res, multiperson=True,
+                      yolo_model_def='yolov3', yolo_weights_path=weights,
+                      dtype=dtype, device='cuda')
+    forwards = []
+    hook = ref.model.register_forward_pre_hook(
+        lambda _m, args: forwards.append(args[0].shape[0]))
+    ref.predict(frames)
+    hook.remove()
+    model.return_heatmaps = model.return_bounding_boxes = False
+    t, te = {}, {}
+    for n in (1, 8):
+        arg = frames[0] if n == 1 else frames
+        secs = {'engine': [], 'eager': []}
+        for _ in range(ENGINE_REPS[n]):
+            for k, m in (('engine', model), ('eager', ref)):
+                secs[k] += host_s(lambda: m.predict(arg), 1)
+        t[n] = 1e3 * float(np.median(secs['engine']))
+        te[n] = 1e3 * float(np.median(secs['eager']))
+    del ref
+    busy, top, port = profile_predict(f'phase 8 [{name}]', model, frames)
+    idle = 1.0 - busy / t[8]
+    ev = eager or {}
+    print(f'phase 8 [{name}]: predict 1 frame {t[1]:.1f} ms (eager in '
+          f'turn {te[1]:.1f}, phase 4 '
+          f'{ev.get("predict_ms_single", float("nan")):.1f}), 8 frames '
+          f'{t[8]:.1f} ms (eager in turn {te[8]:.1f}, phase 4 '
+          f'{ev.get("predict_ms_stack8", float("nan")):.1f}); 8 frames '
+          f'device busy {busy:.2f} ms (phase 4 eager '
+          f'{ev.get("stack8_device_busy_ms", float("nan")):.2f}), idle share '
+          f'{100 * idle:.1f}% (phase 4 eager '
+          f'{100 * ev.get("stack8_idle_share", float("nan")):.1f}%); engine '
+          f'calls {calls}, eager pose forwards on 8 frames {forwards}',
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return runs, dict(load_s=load_s, graph_nodes=nodes, engine_calls=calls,
+                      predict_ms={str(n): v for n, v in t.items()},
+                      eager_in_turn_predict_ms={str(n): v for n, v in
+                                                te.items()},
+                      eager_pose_forwards_stack8=forwards,
+                      stack8_device_busy_ms=busy, stack8_top_device_ms=top,
+                      stack8_port_kernels=port, stack8_idle_share=idle,
+                      eager=eager)
+
+
+def run_engine_stream(paths, weights, counters):
+    """A chunked ``predict_stream`` (4 frames a launch, 16 people) from the
+    W48 bf16 engine after ``warmup``, as phase 5 runs its modes: launches
+    counted, pose batches at ENGINE_BATCH, dispatch under
+    ``strict_dispatch``."""
+    name = 'w48_bf16_fused'
+    _, c, res, _, _ = next(e for e in ENGINES if e[0] == name)
+    model = engine_facade(paths[name], c, res, weights, dtype='bfloat16')
+    model.return_heatmaps = model.return_bounding_boxes = False
+    t0 = time.perf_counter()
+    sizes = model.warmup((480, 640), stream_max_people=16,
+                         stream_batch_frames=(4,))
+    warm_s = time.perf_counter() - t0
+    frames = list(smooth_frames(16))
+    t0 = time.perf_counter()
+    out, record = drive_stream(model, frames, dict(max_people=16,
+                                                   batch_frames=4),
+                               counters, batches=(ENGINE_BATCH,))
+    run_s = time.perf_counter() - t0
+    people = check_people('phase 8 stream', out, len(frames))
+    print(f'phase 8 stream [{name}] (warmup {warm_s:.1f} s, runner caches '
+          f'{sizes}): {len(out)} frames in {1e3 * run_s:.1f} ms, people a '
+          f'frame {min(people)}-{max(people)}; launches '
+          f'{record["launches"]}; engine calls '
+          f'{len(record["pose_batches"])}; guarded dispatch calls '
+          f'{record["guarded_calls"]}', flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return record['launches'], dict(warmup_s=warm_s, runner_caches=sizes,
+                                    first_run_ms=1e3 * run_s, **record)
+
+
+def run_engine_phase(tmp, pths, weights, counters, eager):
+    """Phase 8: the engine path (see the module docstring). Returns each
+    run's launches and the phase's record."""
+    t0 = time.perf_counter()
+    frames = smooth_frames(8)
+    summary, launches = {}, {}
+    paths, summary['exports'] = export_engines(tmp, pths)
+    runs, summary['f32_vs_eager'] = check_engine_f32(paths, pths, weights,
+                                                     frames, counters)
+    launches.update(runs)
+    for engine in ENGINE_TIMED:
+        runs, summary[engine[0]] = time_engine(engine, paths, pths, weights,
+                                               frames, counters,
+                                               eager.get(engine[1]))
+        launches.update(runs)
+    launches['engine_stream_bf16'], summary['stream_bf16'] = \
+        run_engine_stream(paths, weights, counters)
+    summary['seconds'] = time.perf_counter() - t0
+    print(f'phase 8: {summary["seconds"]:.1f} s', flush=True)
+    return launches, summary
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -1997,6 +2288,9 @@ def main():
             single_launches, summary['single_person'] = run_single_phase(
                 dev, pths, counters)
             stream_launches.update(single_launches)
+            engine_launches, summary['engine'] = run_engine_phase(
+                tmp, pths, weights, counters, summary)
+            stream_launches.update(engine_launches)
             for run, launches in stream_launches.items():
                 for k in counters:
                     totals[k] += launches[k]

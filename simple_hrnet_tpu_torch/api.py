@@ -35,7 +35,11 @@ JAX facade gives its jitted graph — that queues its kernels and reads
 nothing back, so launches queue up while the host decodes earlier results
 (``prefetch``).
 
-Constructor options of the JAX facade that are not ported raise
+``enable_tensorrt=True`` (or a ``.torchpose`` checkpoint path) serves the
+pose model from an engine of ``utils/export.py`` instead (the JAX
+facade's ``.jaxpose`` branch): it replaces the pose model in every runner,
+each batch padded to the engine batch and chunked. ``mesh`` (multi-device
+inference) is the one JAX facade option not ported; it raises
 ``NotImplementedError``.
 """
 
@@ -163,11 +167,6 @@ def _pose_tail(model, crops: torch.Tensor, padded_boxes: torch.Tensor
     return hm, D.argmax_decode(hm, padded_boxes)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f'{what} is not ported to the PyTorch/CUDA '
-                               'package yet (see ROADMAP.md)')
-
-
 class SimpleHRNet:
     """2D pose estimation, multi-person or whole-frame single-person, on an
     NVIDIA GPU.
@@ -197,7 +196,14 @@ class SimpleHRNet:
     chain kernel runs). ``interpolation`` ('cubic'/None/2, 'linear'/
     'bilinear'/1 or 'bilinear_aa') is the single-person whole-frame
     resize; multi-person crops always use the PIL-exact resampler, as in
-    the JAX facade.
+    the JAX facade. ``enable_tensorrt=True`` or a ``.torchpose``
+    ``checkpoint_path`` serves the pose model from that engine
+    (``utils/export.Engine`` on ``device``, exported by ``python -m
+    simple_hrnet_tpu_torch.cli.export``): its resolution must equal
+    ``resolution``, ``dtype`` then sets the detector's type only,
+    ``use_fused_kernels`` is not looked at, and ``int8_exclude`` or a JAX
+    ``.jaxpose`` engine raise ``ValueError``. ``mesh`` raises
+    ``NotImplementedError``.
     """
 
     def __init__(self,
@@ -237,10 +243,10 @@ class SimpleHRNet:
         # the JAX facade looks at yolo_version only with a detector
         if multiperson and yolo_version not in ('v3', 'v5'):
             raise ValueError('Unsupported YOLO version.')
-        if enable_tensorrt or checkpoint_path.endswith('.jaxpose'):
-            raise _not_ported('engine export / enable_tensorrt')
         if mesh is not None:
-            raise _not_ported('mesh (multi-device inference)')
+            raise NotImplementedError('mesh (multi-device inference) is not '
+                                      'ported to the PyTorch/CUDA package '
+                                      'yet (see ROADMAP.md)')
         if dtype not in (None, 'bfloat16', 'bf16', 'int8'):
             raise ValueError(f'Unsupported dtype {dtype!r}')
         if interpolation not in ('cubic', None, 2, 'linear', 'bilinear', 1,
@@ -261,26 +267,26 @@ class SimpleHRNet:
         self.dtype = torch.bfloat16 if dtype in ('bfloat16', 'bf16', 'int8') \
             else torch.float32
 
-        if model_name in HRNET_NAMES:
-            net = hrnet.HRNet(c, nof_joints)
-
-            def prepare(model, dtype, amax):
-                return hrnet.prepare_inference(model, dtype, amax=amax,
-                                               kernels=use_fused_kernels)
-        else:
-            net = poseresnet.PoseResNet(c, nof_joints)
-            prepare = poseresnet.prepare_inference
-        model = load_into(net, ckpt.load(checkpoint_path)).to(self.device)
-        amax = None
-        if self.quantize_int8:
-            # calibrate the folded f32 model with its plain modules, before
-            # prepare_inference packs HRNet's chains (api.py:264-277 of the
-            # JAX package calibrates the plain apply graph too)
-            L.fold_batch_norm(model.eval())
-            amax = self._calibrate_int8(model)
+        self.engine = None
+        if enable_tensorrt or checkpoint_path.endswith(('.jaxpose',
+                                                        '.torchpose')):
+            # the engine path (the JAX facade's api.py:215-251, without
+            # mesh): the exported pose model, batches padded to its batch
             if self.int8_exclude:
-                amax = Q.filter_amax(model, amax, self.int8_exclude)
-        self.model = prepare(model, self.dtype, amax=amax)
+                raise ValueError(
+                    'int8_exclude has no effect on a prebuilt .torchpose '
+                    'engine (its precision mix was baked at export time; '
+                    'pass --int8_exclude to python -m '
+                    'simple_hrnet_tpu_torch.cli.export instead)')
+            from simple_hrnet_tpu_torch.utils.export import Engine
+            self.engine = Engine(checkpoint_path, device=self.device)
+            if self.engine.resolution != self.resolution:
+                raise ValueError(
+                    f'engine resolution {self.engine.resolution} != '
+                    f'requested {self.resolution}')
+            self.model = self.engine.apply
+        else:
+            self.model = self._build_model(use_fused_kernels)
 
         det_dtype = 'int8' if self.quantize_int8 else \
             None if self.dtype == torch.float32 else 'bfloat16'
@@ -301,6 +307,32 @@ class SimpleHRNet:
         self._single_runs: Dict[tuple, Callable] = {}
         self._gather_runs: Dict[tuple, Callable] = {}
         self._fused_runs: Dict[tuple, Callable] = {}
+
+    def _build_model(self, use_fused_kernels: bool) -> nn.Module:
+        """The pose model from ``checkpoint_path``: folded, quantized
+        under int8, and with HRNet's kernels unless ``use_fused_kernels``
+        is False."""
+        if self.model_name in HRNET_NAMES:
+            net = hrnet.HRNet(self.c, self.nof_joints)
+
+            def prepare(model, dtype, amax):
+                return hrnet.prepare_inference(model, dtype, amax=amax,
+                                               kernels=use_fused_kernels)
+        else:
+            net = poseresnet.PoseResNet(self.c, self.nof_joints)
+            prepare = poseresnet.prepare_inference
+        model = load_into(net, ckpt.load(self.checkpoint_path)).to(
+            self.device)
+        amax = None
+        if self.quantize_int8:
+            # calibrate the folded f32 model with its plain modules, before
+            # prepare_inference packs HRNet's chains (api.py:264-277 of the
+            # JAX package calibrates the plain apply graph too)
+            L.fold_batch_norm(model.eval())
+            amax = self._calibrate_int8(model)
+            if self.int8_exclude:
+                amax = Q.filter_amax(model, amax, self.int8_exclude)
+        return prepare(model, self.dtype, amax=amax)
 
     @torch.no_grad()
     def _calibrate_int8(self, model: nn.Module):

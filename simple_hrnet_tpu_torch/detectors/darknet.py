@@ -1,14 +1,17 @@
-"""Darknet (YOLOv3 / YOLOv3-tiny) network, init and ``.weights`` loading
-in PyTorch.
+"""Darknet (YOLOv3 / YOLOv3-tiny and user ``.cfg`` graphs) network, cfg
+parsing, init and ``.weights`` loading in PyTorch.
 
 Counterpart of ``simple_hrnet_tpu/detectors/darknet.py``. The block lists
-are copies of the JAX package's (identical to the official cfgs); a
+are copies of the JAX package's (identical to the official cfgs), and
+``parse_cfg`` reads a darknet ``.cfg`` into the same format with the JAX
+package's semantics: the activations linear, leaky, relu, logistic, mish
+and swish/silu (anything else raises at parse time), an explicit
+``padding=``, routes with ``groups``/``group_id`` (one channel group of
+the concatenation), and a strided maxpool padded by ``(size - 1) // 2``. A
 convolutional block ``i`` is the module ``conv_<i>`` with ``weight``
 (OIHW), ``bias`` (no BN) or a ``bn`` BatchNorm2d child — the JAX param
 tree's names, so ``models.convert.from_jax_params`` carries weights across.
-Not ported yet: ``parse_cfg`` (user ``.cfg`` files, with their other
-activations, grouped routes and padded maxpools) and the space-to-depth
-phase stem (a TPU layout device).
+The space-to-depth phase stem (a TPU layout device) is not ported.
 
 ``Darknet.forward`` is the counterpart of ``darknet.apply``: NHWC input
 in [0, 1], output (N, total_anchors, 5 + classes) f32 decoded boxes in the
@@ -115,6 +118,79 @@ def yolov3_tiny_blocks(num_classes: int = 80) -> List[Block]:
     return b
 
 
+ACTIVATIONS = ('linear', 'leaky', 'relu', 'logistic', 'mish', 'swish',
+               'silu')
+
+
+def parse_cfg(path: str) -> List[Block]:
+    """Parse a darknet .cfg into the block-list format above (the JAX
+    package's ``parse_cfg``)."""
+    sections: List[Tuple[str, Dict[str, str]]] = []
+    with open(path) as f:
+        current: Optional[Dict[str, str]] = None
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(('#', ';')):
+                continue
+            if line.startswith('['):
+                current = {}
+                sections.append((line[1:-1].strip(), current))
+            elif current is not None and '=' in line:
+                k, v = line.split('=', 1)
+                current[k.strip()] = v.strip()
+
+    blocks: List[Block] = []
+    for name, sec in sections:
+        if name in ('net', 'network'):
+            continue
+        if name == 'convolutional':
+            act = sec.get('activation', 'linear')
+            if act not in ACTIVATIONS:
+                # an unknown activation run as linear would give garbage
+                # detections
+                raise ValueError(
+                    f'Unsupported darknet activation {act!r} (supported: '
+                    'linear, leaky, relu, logistic, mish, swish/silu)')
+            size = int(sec['size'])
+            if 'padding' in sec:  # darknet's explicit padding= overrides
+                pad = int(sec['padding'])
+            else:
+                pad = (size - 1) // 2 if sec.get('pad') == '1' else 0
+            blocks.append({
+                'type': 'convolutional',
+                'filters': int(sec['filters']),
+                'size': size,
+                'stride': int(sec.get('stride', 1)),
+                'pad': pad,
+                'bn': sec.get('batch_normalize') == '1',
+                'activation': act,
+            })
+        elif name == 'shortcut':
+            blocks.append({'type': 'shortcut', 'from': int(sec['from'])})
+        elif name == 'route':
+            blk: Block = {'type': 'route', 'layers': [
+                int(x) for x in sec['layers'].split(',')]}
+            if 'groups' in sec:  # yolov4-tiny channel-split routes
+                blk['groups'] = int(sec['groups'])
+                blk['group_id'] = int(sec.get('group_id', 0))
+            blocks.append(blk)
+        elif name == 'upsample':
+            blocks.append({'type': 'upsample', 'stride': int(sec['stride'])})
+        elif name == 'maxpool':
+            blocks.append({'type': 'maxpool', 'size': int(sec.get('size', 2)),
+                           'stride': int(sec.get('stride', 2))})
+        elif name == 'yolo':
+            a = [float(x) for x in sec['anchors'].split(',')]
+            blocks.append({'type': 'yolo',
+                           'mask': [int(x) for x in sec['mask'].split(',')],
+                           'anchors': [(a[i], a[i + 1])
+                                       for i in range(0, len(a), 2)],
+                           'classes': int(sec.get('classes', 80))})
+        else:
+            raise ValueError(f'Unsupported darknet section [{name}]')
+    return blocks
+
+
 def output_channels(blocks: List[Block], in_channels: int = 3) -> List[int]:
     """Static per-layer output channel counts."""
     chans: List[int] = []
@@ -126,7 +202,7 @@ def output_channels(blocks: List[Block], in_channels: int = 3) -> List[int]:
             chans.append(chans[i - 1] if i else in_channels)
         elif t == 'route':
             chans.append(sum(chans[l if l >= 0 else i + l]
-                             for l in blk['layers']))
+                             for l in blk['layers']) // blk.get('groups', 1))
         else:
             raise ValueError(f'unsupported darknet block {t!r}')
     return chans
@@ -143,7 +219,7 @@ class DarknetConv(nn.Module):
         f, k = blk['filters'], blk['size']
         self.stride = blk['stride']
         self.padding = blk['pad']
-        if blk['activation'] not in ('leaky', 'linear'):
+        if blk['activation'] not in ACTIVATIONS:
             raise ValueError(f"unsupported activation {blk['activation']!r}")
         self.activation = blk['activation']
         self.weight = nn.Parameter(torch.empty(f, c_in, k, k))
@@ -159,8 +235,17 @@ class DarknetConv(nn.Module):
                          padding=self.padding)
         if self.bn is not None:
             y = self.bn(y)
-        if self.activation == 'leaky':
+        act = self.activation
+        if act == 'leaky':
             y = F.leaky_relu(y, 0.1)
+        elif act == 'relu':
+            y = F.relu(y)
+        elif act == 'logistic':
+            y = torch.sigmoid(y)
+        elif act == 'mish':
+            y = y * torch.tanh(F.softplus(y))
+        elif act in ('swish', 'silu'):
+            y = y * torch.sigmoid(y)
         return y
 
     def fold(self) -> None:
@@ -237,6 +322,11 @@ class Darknet(nn.Module):
                 feats = [outputs[l if l >= 0 else i + l]
                          for l in blk['layers']]
                 x = feats[0] if len(feats) == 1 else torch.cat(feats, 1)
+                g = blk.get('groups', 1)
+                if g > 1:  # yolov4-tiny: the route keeps one channel group
+                    cg = x.shape[1] // g
+                    gid = blk.get('group_id', 0)
+                    x = x[:, gid * cg:(gid + 1) * cg]
             elif t == 'upsample':
                 x = F.interpolate(x, scale_factor=blk['stride'],
                                   mode='nearest')
@@ -245,7 +335,13 @@ class Darknet(nn.Module):
                 if blk['stride'] == 1:
                     # darknet 'same' maxpool (tiny): pad right/bottom
                     x = F.pad(x, (0, k - 1, 0, k - 1), value=float('-inf'))
-                x = F.max_pool2d(x, k, blk['stride'])
+                    x = F.max_pool2d(x, k, 1)
+                else:
+                    # MaxPool2d with padding (size - 1) // 2, as the JAX
+                    # package: 0 for the built-in cfgs' even windows, not
+                    # for e.g. a size-3 pool of a user cfg
+                    x = F.max_pool2d(x, k, blk['stride'],
+                                     padding=(k - 1) // 2)
             elif t == 'yolo':
                 detections.append(_yolo_decode(x, blk, img_size))
             outputs.append(x)

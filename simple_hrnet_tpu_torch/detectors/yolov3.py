@@ -10,6 +10,7 @@ reference's row format (x1, y1, x2, y2, conf, cls_conf, cls_pred).
 
 from __future__ import annotations
 
+import abc
 import functools
 import os
 from typing import List, Optional, Sequence, Tuple, Union
@@ -114,7 +115,7 @@ def kept_rows(boxes: torch.Tensor, top_scores: torch.Tensor,
     return rows
 
 
-class PersonDetector:
+class PersonDetector(abc.ABC):
     """The reference adapter's API over a subclass's ``_detect`` (one
     chunk of (N, H, W, 3) RGB frames on ``self.device`` -> padded rows and
     validity), in chunks of ``self.max_batch_size`` frames."""
@@ -122,9 +123,10 @@ class PersonDetector:
     device: torch.device
     max_batch_size: int
 
+    @abc.abstractmethod
     def _detect(self, frames: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        raise NotImplementedError
+        """One chunk of frames -> (rows, valid) on the device."""
 
     @true_f32()
     def detect_padded(self, frames_rgb) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -165,9 +167,14 @@ class PersonDetector:
 class YOLOv3(PersonDetector):
     """Person detector with the reference adapter's constructor surface.
 
-    ``model_def``: 'yolov3' or 'yolov3-tiny'; ``weights_path``: a darknet
-    ``.weights`` binary, a ``.pth``/``.pt`` ``Darknet`` state_dict, or None
-    for random weights (seed 0, for tests and smoke runs). ``device``:
+    ``model_def``: 'yolov3', 'yolov3-tiny' or the path of a darknet
+    ``.cfg`` (parsed when the file exists; a missing one falls back to the
+    built-in blocks, 'tiny' in the name picking YOLOv3-tiny, as in the JAX
+    package); ``class_path`` is accepted and not read (the COCO class
+    order is built in, as in the JAX package); ``weights_path``: a darknet
+    ``.weights`` binary, a ``.pth``/``.pt`` ``Darknet`` state_dict, a JAX
+    ``.npz`` darknet tree, or None for random weights (seed 0, for tests
+    and smoke runs). ``device``:
     'cuda' (default; raises without a card) or 'cpu'. ``dtype``: None
     (f32) or 'bfloat16' for the darknet convs.
     """
@@ -187,14 +194,12 @@ class YOLOv3(PersonDetector):
                  quantize_int8: Optional[bool] = None):
         if quantize_int8 is not None and dtype != 'int8':
             raise ValueError("quantize_int8 only applies with dtype='int8'")
-        if model_def.endswith('.cfg'):
-            raise NotImplementedError('darknet .cfg parsing is not ported '
-                                      "yet; use 'yolov3' or 'yolov3-tiny'")
-        if class_path is not None:
-            raise NotImplementedError('class_path is not ported (the COCO '
-                                      'class order is built in)')
-        self.blocks = (darknet.yolov3_tiny_blocks() if 'tiny' in model_def
-                       else darknet.yolov3_blocks())
+        if model_def.endswith('.cfg') and os.path.exists(model_def):
+            self.blocks = darknet.parse_cfg(model_def)
+        elif 'tiny' in model_def:
+            self.blocks = darknet.yolov3_tiny_blocks()
+        else:
+            self.blocks = darknet.yolov3_blocks()
         if weights_path and os.path.exists(weights_path):
             if weights_path.endswith('.weights'):
                 net = darknet.load_darknet_weights(weights_path, self.blocks)

@@ -14,8 +14,10 @@ and PoseResNet trees, the darknet tree (``conv_<i>`` nodes with a nested
 same weights. PoseResNet's transposed convs (``deconv_layers.N``) are
 stored by the JAX package spatially flipped, HWIO with I = C_in (its
 ``convert.state_dict_to_tree``); their torch weight (C_in, C_out, kh, kw)
-is the flip undone and transposed. ``amax_from_jax``
-carries a JAX int8 calibration map across the same way.
+is the flip undone and transposed. ``to_jax_params`` is the inverse
+(the JAX package's ``state_dict_to_tree`` in numpy), so the port writes
+``.npz`` checkpoints the JAX package reads. ``amax_from_jax`` carries a
+JAX int8 calibration map across the same way.
 """
 
 from __future__ import annotations
@@ -93,6 +95,39 @@ def from_jax_params(tree: Mapping[str, Any], prefix: str = ''
             continue
         flat.update(from_jax_params(v, prefix=f'{path}.'))
     return flat
+
+
+def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Flat torch state_dict -> JAX param tree of numpy arrays (the JAX
+    package's ``state_dict_to_tree``, in numpy): OIHW conv weights become
+    HWIO ``kernel``s (PoseResNet's ``deconv_layers`` transposed and flipped
+    spatially), BN modules (those with ``running_mean``) ``scale``/
+    ``bias``/``mean``/``var``, ``num_batches_tracked`` is dropped."""
+    state_dict = clean_state_dict(state_dict)
+    bn_modules = {k[:-len('.running_mean')] for k in state_dict
+                  if k.endswith('.running_mean')}
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        parts = key.split('.')
+        leaf, module = parts[-1], '.'.join(parts[:-1])
+        if leaf == 'num_batches_tracked':
+            continue
+        arr = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value))
+        if module in bn_modules:
+            leaf = {'weight': 'scale', 'bias': 'bias', 'running_mean': 'mean',
+                    'running_var': 'var'}[leaf]
+        elif leaf == 'weight':
+            if arr.ndim == 4:
+                arr = (np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+                       if 'deconv_layers' in parts
+                       else np.transpose(arr, (2, 3, 1, 0)))
+            leaf = 'kernel'
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def conv_node_paths(tree: Mapping[str, Any], prefix: tuple = ()

@@ -13,12 +13,20 @@ value per source, so the biases collapse into the accumulator's start).
 The kernel wants C a multiple of 8, each C_j a multiple of 16 (HRNet's
 widths are: C_j = f_j * C) and its shared memory within one block's
 (``takes``), and raises otherwise.
+
+``fuse_up`` checks the operands' shapes and calls the custom op
+``sht::fuse_up`` (``torch.library.custom_op``): its CPU implementation is
+the plain version, its CUDA one the kernel launch, which raises where the
+kernel does not take the operands, and its fake implementation gives
+``torch.export`` the output's shape and type, so an exported graph holds
+the op (``utils/export.py``). ``fuse_up.launches`` counts every kernel
+launch, eager or from an exported program.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -58,28 +66,43 @@ def fuse_up_plain(base: torch.Tensor, ys: Sequence[torch.Tensor],
 def fuse_up(base: torch.Tensor, ys: Sequence[torch.Tensor],
             weights: Sequence[torch.Tensor],
             bias_sum: torch.Tensor) -> torch.Tensor:
-    """The fused resize-add: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """The fused resize-add through the custom op ``sht::fuse_up``: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if base.ndim != 4 or not 1 <= len(ys) <= MAX_SOURCES or \
             len(weights) != len(ys):
         raise ValueError(f'fuse_up wants base (B, H, W, C) and 1..'
                          f'{MAX_SOURCES} sources with one weight each; got '
                          f'{tuple(base.shape)}, {len(ys)} sources, '
                          f'{len(weights)} weights')
-    bsz, h, wd, c = base.shape
-    factors = [_factor(base.shape, y.shape) for y in ys]
+    bsz, c = base.shape[0], base.shape[3]
     for y, w in zip(ys, weights):
+        _factor(base.shape, y.shape)
         if y.shape[0] != bsz or tuple(w.shape) != (y.shape[-1], c):
             raise ValueError(f'fuse_up source {tuple(y.shape)} / weight '
                              f'{tuple(w.shape)} do not match base '
                              f'{tuple(base.shape)}')
     if tuple(bias_sum.shape) != (c,):
         raise ValueError(f'fuse_up bias_sum {tuple(bias_sum.shape)} != ({c},)')
-    if base.device.type == 'cpu':
-        return fuse_up_plain(base, ys, weights, bias_sum)
+    return _fuse_up_op(base, list(ys), list(weights), bias_sum)
+
+
+@torch.library.custom_op('sht::fuse_up', mutates_args=(), device_types='cpu')
+def _fuse_up_op(base: torch.Tensor, ys: List[torch.Tensor],
+                weights: List[torch.Tensor],
+                bias_sum: torch.Tensor) -> torch.Tensor:
+    return fuse_up_plain(base, ys, weights, bias_sum)
+
+
+@_fuse_up_op.register_kernel('cuda')
+def _fuse_up_cuda(base: torch.Tensor, ys: List[torch.Tensor],
+                  weights: List[torch.Tensor],
+                  bias_sum: torch.Tensor) -> torch.Tensor:
+    """The kernel launch; raises where the kernel does not take the
+    operands, never falls back to the plain version."""
+    bsz, h, wd, c = base.shape
+    factors = [_factor(base.shape, y.shape) for y in ys]
     tensors = [base, bias_sum, *ys, *weights]
-    if base.device.type != 'cuda' or any(t.device != base.device
-                                         for t in tensors):
+    if any(t.device != base.device for t in tensors):
         raise ValueError('fuse_up: every tensor must lie on one CUDA device')
     if base.dtype not in DTYPE_CODES or bias_sum.dtype != torch.float32 or \
             any(t.dtype != base.dtype for t in (*ys, *weights)):
@@ -113,6 +136,11 @@ def fuse_up(base: torch.Tensor, ys: Sequence[torch.Tensor],
     build.check(rc, 'fuse_up kernel')
     fuse_up.launches += 1
     return out
+
+
+@_fuse_up_op.register_fake
+def _fuse_up_fake(base, ys, weights, bias_sum):
+    return torch.empty_like(base, memory_format=torch.contiguous_format)
 
 
 fuse_up.launches = 0

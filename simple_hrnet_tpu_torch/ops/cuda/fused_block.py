@@ -9,6 +9,14 @@ Weights come from ``pack_chain_weights``: the 8 folded conv kernels
 stacked (8, 3, 3, C, C) HWIO in the activation type and their biases
 (8, C) f32 — ``pack_chain_weights(..., group=1)``'s layout in the JAX
 package.
+
+``basic_chain`` checks the operands' shapes and calls the custom op
+``sht::basic_chain`` (``torch.library.custom_op``): its CPU implementation is
+the plain version, its CUDA one the kernel launch, which raises where the
+kernel does not take the operands, and its fake implementation gives
+``torch.export`` the output's shape and type, so an exported graph holds
+the op (``utils/export.py``). ``basic_chain.launches`` counts every kernel
+launch, eager or from an exported program.
 """
 
 from __future__ import annotations
@@ -69,19 +77,33 @@ def basic_chain_plain(x: torch.Tensor, w: torch.Tensor,
 
 def basic_chain(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
-    """4 BasicBlocks on x (B, H, W, C) NHWC: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """4 BasicBlocks on x (B, H, W, C) NHWC through the custom op
+    ``sht::basic_chain``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if x.ndim != 4:
         raise ValueError(f'basic_chain wants x (B, H, W, C), got '
                          f'{tuple(x.shape)}')
-    bsz, h, wd, c = x.shape
+    c = x.shape[3]
     if tuple(w.shape) != (8, 3, 3, c, c) or tuple(b.shape) != (8, c):
         raise ValueError(f'basic_chain weights {tuple(w.shape)} / biases '
                          f'{tuple(b.shape)} do not match C = {c}')
-    if x.device.type == 'cpu':
-        return basic_chain_plain(x, w, b)
-    if x.device.type != 'cuda' or w.device != x.device or \
-            b.device != x.device:
+    return _basic_chain_op(x, w, b)
+
+
+@torch.library.custom_op('sht::basic_chain', mutates_args=(),
+                         device_types='cpu')
+def _basic_chain_op(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    return basic_chain_plain(x, w, b)
+
+
+@_basic_chain_op.register_kernel('cuda')
+def _basic_chain_cuda(x: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """The kernel launch; raises where the kernel does not take the
+    operands, never falls back to the plain version."""
+    bsz, h, wd, c = x.shape
+    if w.device != x.device or b.device != x.device:
         raise ValueError(f'basic_chain: x on {x.device}, w on {w.device}, '
                          f'b on {b.device}; want one CUDA device')
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype or \
@@ -111,6 +133,11 @@ def basic_chain(x: torch.Tensor, w: torch.Tensor,
     build.check(rc, 'basic_chain kernel')
     basic_chain.launches += 1
     return out
+
+
+@_basic_chain_op.register_fake
+def _basic_chain_fake(x, w, b):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 basic_chain.launches = 0

@@ -27,6 +27,14 @@ The JAX package runs the Pallas kernel only where ``G * c == 128`` and
 branch-0 W % 8 == 0 (``chain_pallas_int8_ok``), the XLA chain elsewhere;
 ``models/hrnet.py`` picks the mode by the same rule. In f32 the two modes
 give the same numbers.
+
+``int8_chain`` checks the operands' shapes and calls the custom op
+``sht::int8_chain`` (``torch.library.custom_op``): its CPU implementation is
+the plain version, its CUDA one the kernel launch, which raises where the
+kernel does not take the operands, and its fake implementation gives
+``torch.export`` the output's shape and type, so an exported graph holds
+the op (``utils/export.py``). ``int8_chain.launches`` counts every kernel
+launch, eager or from an exported program.
 """
 
 from __future__ import annotations
@@ -114,24 +122,40 @@ def int8_chain_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
 def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                b: torch.Tensor, ascales: torch.Tensor,
                round_handoffs: bool = False) -> torch.Tensor:
-    """4 int8 BasicBlocks on x (B, H, W, C) NHWC: the CUDA kernel for CUDA
-    tensors (bf16 in and out), the plain version for CPU tensors.
-    ``round_handoffs`` picks the cast points (module docstring)."""
+    """4 int8 BasicBlocks on x (B, H, W, C) NHWC through the custom op
+    ``sht::int8_chain``: the CUDA kernel for CUDA tensors (bf16 in and
+    out), the plain version for CPU tensors. ``round_handoffs`` picks the
+    cast points (module docstring)."""
     if x.ndim != 4:
         raise ValueError(f'int8_chain wants x (B, H, W, C), got '
                          f'{tuple(x.shape)}')
-    bsz, h, wd, c = x.shape
+    c = x.shape[3]
     if tuple(wq.shape) != (8, 3, 3, c, c) or tuple(wscale.shape) != (8, c) \
             or tuple(b.shape) != (8, c) or tuple(ascales.shape) != (8,):
         raise ValueError(f'int8_chain operands wq {tuple(wq.shape)}, wscale '
                          f'{tuple(wscale.shape)}, b {tuple(b.shape)}, '
                          f'ascales {tuple(ascales.shape)} do not match C = '
                          f'{c}')
-    if x.device.type == 'cpu':
-        return int8_chain_plain(x, wq, wscale, b, ascales, round_handoffs)
+    return _int8_chain_op(x, wq, wscale, b, ascales, bool(round_handoffs))
+
+
+@torch.library.custom_op('sht::int8_chain', mutates_args=(),
+                         device_types='cpu')
+def _int8_chain_op(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                   b: torch.Tensor, ascales: torch.Tensor,
+                   round_handoffs: bool) -> torch.Tensor:
+    return int8_chain_plain(x, wq, wscale, b, ascales, round_handoffs)
+
+
+@_int8_chain_op.register_kernel('cuda')
+def _int8_chain_cuda(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                     b: torch.Tensor, ascales: torch.Tensor,
+                     round_handoffs: bool) -> torch.Tensor:
+    """The kernel launch; raises where the kernel does not take the
+    operands, never falls back to the plain version."""
+    bsz, h, wd, c = x.shape
     operands = (wq, wscale, b, ascales)
-    if x.device.type != 'cuda' or any(t.device != x.device
-                                      for t in operands):
+    if any(t.device != x.device for t in operands):
         raise ValueError('int8_chain: every tensor must lie on one CUDA '
                          'device')
     if x.dtype != torch.bfloat16 or wq.dtype != torch.int8 or \
@@ -159,6 +183,11 @@ def int8_chain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     build.check(rc, 'int8_chain kernel')
     int8_chain.launches += 1
     return out
+
+
+@_int8_chain_op.register_fake
+def _int8_chain_fake(x, wq, wscale, b, ascales, round_handoffs):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 int8_chain.launches = 0

@@ -20,6 +20,14 @@ with U the ky taps transformed by the F(2,3) G matrix. The cast points are
 rounded to the activation type, U is in the activation type, the dots
 accumulate in f32, the bias, the f32 residual of the block input and the
 ReLU follow in f32, and each conv's output is cast once.
+
+``wino_chain`` checks the operands' shapes and calls the custom op
+``sht::wino_chain`` (``torch.library.custom_op``): its CPU implementation is
+the plain version, its CUDA one the kernel launch, which raises where the
+kernel does not take the operands, and its fake implementation gives
+``torch.export`` the output's shape and type, so an exported graph holds
+the op (``utils/export.py``). ``wino_chain.launches`` counts every kernel
+launch, eager or from an exported program.
 """
 
 from __future__ import annotations
@@ -102,22 +110,36 @@ def wino_chain_plain(x: torch.Tensor, ww: torch.Tensor,
 
 def wino_chain(x: torch.Tensor, ww: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
-    """4 BasicBlocks on x (B, H, W, C) NHWC, Winograd-H: the CUDA kernel
-    for CUDA tensors (bf16, C in ``WINO_WIDTHS``, any W and even H), the
-    plain version for CPU tensors."""
+    """4 BasicBlocks on x (B, H, W, C) NHWC, Winograd-H, through the custom
+    op ``sht::wino_chain``: the CUDA kernel for CUDA tensors (bf16, C in
+    ``WINO_WIDTHS``, any W and even H), the plain version for CPU
+    tensors."""
     if x.ndim != 4:
         raise ValueError(f'wino_chain wants x (B, H, W, C), got '
                          f'{tuple(x.shape)}')
-    bsz, h, wd, c = x.shape
+    h, c = x.shape[1], x.shape[3]
     if tuple(ww.shape) != (8, 4, 3 * c, c) or tuple(b.shape) != (8, c):
         raise ValueError(f'wino_chain weights {tuple(ww.shape)} / biases '
                          f'{tuple(b.shape)} do not match C = {c}')
     if h % 2:
         raise ValueError(f'wino_chain tiles H in row pairs; H = {h} is odd')
-    if x.device.type == 'cpu':
-        return wino_chain_plain(x, ww, b)
-    if x.device.type != 'cuda' or ww.device != x.device or \
-            b.device != x.device:
+    return _wino_chain_op(x, ww, b)
+
+
+@torch.library.custom_op('sht::wino_chain', mutates_args=(),
+                         device_types='cpu')
+def _wino_chain_op(x: torch.Tensor, ww: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    return wino_chain_plain(x, ww, b)
+
+
+@_wino_chain_op.register_kernel('cuda')
+def _wino_chain_cuda(x: torch.Tensor, ww: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """The kernel launch; raises where the kernel does not take the
+    operands, never falls back to the plain version."""
+    bsz, h, wd, c = x.shape
+    if ww.device != x.device or b.device != x.device:
         raise ValueError(f'wino_chain: x on {x.device}, ww on {ww.device}, '
                          f'b on {b.device}; want one CUDA device')
     if x.dtype != torch.bfloat16 or ww.dtype != torch.bfloat16 or \
@@ -146,6 +168,11 @@ def wino_chain(x: torch.Tensor, ww: torch.Tensor,
     build.check(rc, 'wino_chain kernel')
     wino_chain.launches += 1
     return out
+
+
+@_wino_chain_op.register_fake
+def _wino_chain_fake(x, ww, b):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 wino_chain.launches = 0

@@ -1,25 +1,80 @@
-"""Checkpoint loading for the port.
+"""Checkpoint I/O for the port.
 
-Counterpart of ``load`` in ``simple_hrnet_tpu/utils/checkpoint.py`` for
-``.pth``/``.pt`` files: official weight files (flat state_dicts) and
-training-harness checkpoints (``{'model': state_dict, ...}``), with
-``module.`` prefixes stripped. BN is folded later, by
-``models.hrnet.prepare_inference``.
+Counterpart of ``load``/``save`` in ``simple_hrnet_tpu/utils/checkpoint.py``:
+  * ``.pth``/``.pt``: official weight files (flat state_dicts) and
+    training-harness checkpoints (``{'model': state_dict, ...}``), with
+    ``module.`` prefixes stripped;
+  * ``.npz``: the JAX package's own format, one array per leaf of its
+    param tree under the leaf's path joined by ``|``. ``load`` maps the
+    tree through ``models.convert.from_jax_params`` (HRNet, PoseResNet and
+    darknet trees alike); ``save`` writes the tree of
+    ``models.convert.to_jax_params``, which the JAX package's ``load``
+    reads.
+BN is folded later, by the models' ``prepare_inference``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping, Union
 
+import numpy as np
 import torch
+import torch.nn as nn
 
-from simple_hrnet_tpu_torch.models.convert import clean_state_dict
+from simple_hrnet_tpu_torch.models.convert import (clean_state_dict,
+                                                   from_jax_params,
+                                                   to_jax_params)
+
+SEP = '|'  # path separator in flattened npz keys ('.' is in no key name)
+
+
+def _flatten(tree: Any, prefix: str = '') -> Dict[str, np.ndarray]:
+    """A nested dict of arrays as {'a|b|leaf': array} (the JAX package's
+    ``_flatten``, with its guards)."""
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        if not tree:
+            # an empty subtree would vanish from the npz and fail only
+            # after reload
+            raise ValueError(f'cannot save empty dict at {prefix[:-1]!r}')
+        for k, v in tree.items():
+            flat.update(_flatten(v, f'{prefix}{k}{SEP}'))
+    elif isinstance(tree, (list, tuple)):
+        # np.asarray would stack same-shape entries into one array, and the
+        # reload would not give the container back
+        raise TypeError(f'npz checkpoints hold nested dicts of arrays only; '
+                        f'got {type(tree).__name__} at {prefix[:-1]!r}')
+    else:
+        flat[prefix[:-1]] = np.asarray(tree)
+    return flat
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = key.split(SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(v)
+    return tree
 
 
 def load(path: str) -> Dict[str, torch.Tensor]:
-    """Load a ``.pth``/``.pt`` checkpoint as a flat CPU state_dict."""
-    if not path.endswith(('.pth', '.pt')):
-        raise NotImplementedError(
-            f'{path!r}: the port loads .pth/.pt checkpoints only')
-    return clean_state_dict(torch.load(path, map_location='cpu',
-                                       weights_only=True))
+    """Load a ``.pth``/``.pt`` checkpoint, or else an ``.npz`` one, as a
+    flat CPU state_dict (the JAX package's ``load`` rule)."""
+    if path.endswith(('.pth', '.pt')):
+        return clean_state_dict(torch.load(path, map_location='cpu',
+                                           weights_only=True))
+    with np.load(path) as f:
+        return from_jax_params(_unflatten({k: f[k] for k in f.files}))
+
+
+def save(path: str, model_or_state_dict: Union[nn.Module,
+                                               Mapping[str, Any]]) -> None:
+    """Save an (unfolded) model or state_dict as an ``.npz`` in the JAX
+    package's layout."""
+    sd = (model_or_state_dict.state_dict()
+          if isinstance(model_or_state_dict, nn.Module)
+          else model_or_state_dict)
+    np.savez(path, **_flatten(to_jax_params(sd)))

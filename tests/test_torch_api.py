@@ -232,9 +232,7 @@ def test_whole_slice_matches_jax(facades):
     _assert_same_people(port.predict(frames[0]), single)
 
 
-@pytest.mark.parametrize('kwargs', [
-    dict(enable_tensorrt=True), dict(mesh=object()),
-    dict(yolo_class_path='coco.names'), dict(yolo_model_def='my.cfg')])
+@pytest.mark.parametrize('kwargs', [dict(mesh=object())])
 def test_unported_options_raise(tmp_path, kwargs):
     path = str(tmp_path / 'w8.pth')
     torch.save(TH.init(8, 17).state_dict(), path)
@@ -287,6 +285,9 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module of the port, nor ``chip_smoke.py``, imports JAX or the JAX
+    package, nor (the card host has neither) cv2 or matplotlib, when it
+    is imported."""
     code = (
         'import pkgutil, sys\n'
         'import simple_hrnet_tpu_torch as pkg\n'
@@ -294,7 +295,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         '    __import__(m.name)\n'
         'import chip_smoke\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
-        ' or m == "simple_hrnet_tpu" or m.startswith("simple_hrnet_tpu.")]\n'
+        ' or m == "simple_hrnet_tpu" or m.startswith("simple_hrnet_tpu.")'
+        ' or m == "cv2" or m.split(".")[0] == "matplotlib"]\n'
         'assert not bad, bad\n'
         'print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -102,8 +102,11 @@ def test_darknet_weights_roundtrip_with_jax_loader(tmp_path):
 
 
 def test_unported_detector_options_raise():
-    with pytest.raises(NotImplementedError):
-        TY.YOLOv3('custom.cfg', device='cpu')
+    """A ``.cfg`` name that is no file falls back to the built-in blocks,
+    as in the JAX package (``.cfg`` files are parsed now); an unknown
+    dtype raises."""
+    assert TY.YOLOv3('custom-tiny.cfg', device='cpu').blocks == \
+        JD.yolov3_tiny_blocks()
     with pytest.raises(ValueError, match='Unsupported dtype'):
         TY.YOLOv3('yolov3-tiny', device='cpu', dtype='float16')
 
