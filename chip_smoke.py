@@ -109,11 +109,31 @@ Phases (any failure exits nonzero):
      process state) and the 8-frame call profiled, printed beside those
      and phase 4's eager numbers;
      a chunked ``predict_stream`` from the bf16 engine after ``warmup``
-     runs as phase 5 runs its modes, dispatch guarded.
+     runs as phase 5 runs its modes, dispatch guarded;
+  9. the training path (``train/``) at the ``train_coco`` CLI's defaults,
+     fed by the port's ``COCODataset`` over seeded annotations and
+     in-memory 480x640 images (its image read and warp replaced: the card
+     host has no cv2). In f32, HRNet-W48-384x288 at batch 2: one flip-test
+     eval step and one SGD train step (momentum 0) on the card from the
+     device-target tail, against the same steps on the CPU from the host
+     tail, within ``TRAIN_LIMITS`` (loss, heatmaps, the update vector,
+     running statistics; the CPU on one thread against its default count
+     printed beside them as the rounding yardstick); the steps must put
+     back the TF32 flags they find; two controls (one BN momentum 10%
+     off, one joint weight 1% off) must fall outside. In bf16,
+     ``COCOTrain`` (batch 16, Adam lr 1e-3, flip test) runs an epoch of 2
+     steps, validation with OKS-NMS and the native COCO AP, and
+     ``_checkpoint``; the losses must be finite; ``load_train`` of
+     ``checkpoint_last`` must give the trainer's state bit for bit; the
+     loss on one batch repeated for 20 steps must fall; the step is timed
+     (median of 10 after warmup, images/s, peak memory) and profiled
+     (device busy, idle share, top kernels). No port kernel may launch
+     anywhere in the phase.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
-``--kernels-only`` flag stops after phase 2 (for iterating on a kernel).
+``--kernels-only`` flag stops after phase 2 (for iterating on a kernel);
+``--train-only`` runs phase 9 alone.
 Imports nothing of JAX.
 """
 
@@ -1038,6 +1058,11 @@ def device_profile(fn):
         # device-side entries only (kernels, memcpy, memset): the aten ops
         # that launch them would count the same time again
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # a range annotated on the device track (the optimizer's step,
+        # 'Optimizer.step#Adam.step') spans kernels counted on their own
+        if getattr(ev, 'is_user_annotation', False) or \
+                ev.key.startswith('Optimizer.'):
             continue
         dev_us = getattr(ev, 'self_device_time_total',
                          getattr(ev, 'self_cuda_time_total', 0.0))
@@ -2215,6 +2240,347 @@ def run_engine_phase(tmp, pths, weights, counters, eager):
     return launches, summary
 
 
+# phase 9: the training path at the train_coco CLI's defaults
+TRAIN_RES = (384, 288)          # (height, width)
+TRAIN_BATCH = 16
+FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+              [15, 16]]
+# the f32 card-vs-CPU limits of one W48 train step and one flip-test eval
+# step at batch 2 (true f32 on both): loss relative; heatmaps of their
+# largest value; the update vector as a whole (relative); running
+# statistics of each BN's largest value. The train-mode forward and its
+# backward carry each side's rounding through ~100 batch-statistics BNs,
+# and the CPU on one thread against its default count differs by as much
+# (the first card readings: train heatmaps 1.9e-4 and the update 3.8%
+# from the CPU, the CPU from itself 1.7e-3 and 11%, running statistics
+# 1.8e-5 and 1.9e-4); the controls (a BN momentum 10% off, one joint
+# weight 1% off) move the running statistics (2e-2) and the loss (2.4e-3)
+# by orders more than their limits
+TRAIN_LIMITS = {'loss': 1e-5, 'heatmaps': 5e-3, 'eval_loss': 1e-5,
+                'eval_heatmaps': 1e-4, 'update': 0.25,
+                'running_stats': 1e-3}
+REPEAT_STEPS = 20               # the bf16 steps on one repeated batch
+TIMED_STEPS = 10                # timed bf16 steps after warmup
+
+
+def write_memory_coco(root, seed=9):
+    """Seeded person_keypoints_{train,val}2017.json under ``root`` (16 and
+    8 images of 480x640, two people each, a few joints unlabelled)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, 'annotations'), exist_ok=True)
+    ann_id = 1
+    for version, n_img, first in (('train2017', 16, 1), ('val2017', 8, 101)):
+        images, anns = [], []
+        for img_id in range(first, first + n_img):
+            images.append({'id': img_id, 'width': 640, 'height': 480,
+                           'file_name': '%012d.jpg' % img_id})
+            for _ in range(2):
+                bw, bh = rng.uniform(80, 220), rng.uniform(160, 400)
+                x, y = rng.uniform(0, 640 - bw), rng.uniform(0, 480 - bh)
+                kpts = []
+                for _ in range(17):
+                    if rng.uniform() < 0.15:
+                        kpts += [0.0, 0.0, 0]
+                    else:
+                        kpts += [float(x + rng.uniform(0, bw)),
+                                 float(y + rng.uniform(0, bh)), 2]
+                anns.append({'id': ann_id, 'image_id': img_id,
+                             'category_id': 1, 'iscrowd': 0,
+                             'bbox': [float(x), float(y), float(bw),
+                                      float(bh)],
+                             'area': float(bw * bh), 'keypoints': kpts,
+                             'num_keypoints': sum(1 for v in kpts[2::3]
+                                                  if v)})
+                ann_id += 1
+        with open(os.path.join(root, 'annotations',
+                               f'person_keypoints_{version}.json'), 'w') as f:
+            json.dump({'images': images, 'annotations': anns,
+                       'categories': [{'id': 1, 'name': 'person'}]}, f)
+
+
+def memory_coco(**kw):
+    """The port's ``COCODataset`` over seeded in-memory 480x640 images: its
+    image read and warp replaced (the card host has no cv2), everything
+    else, augmentation, targets and ``evaluate_overall_accuracy`` (OKS
+    rescoring, OKS-NMS, the native COCO AP) as it is."""
+    from simple_hrnet_tpu_torch.data.coco import COCODataset
+
+    class MemoryCOCO(COCODataset):
+        def _read_image(self, path):
+            img_id = int(os.path.basename(path)[:-4])
+            blocks = np.random.default_rng(img_id).integers(
+                0, 256, (30, 40, 3), dtype=np.uint8)
+            return np.repeat(np.repeat(blocks, 16, axis=0), 16, axis=1)
+
+        def _warp(self, image, trans):
+            """Nearest-neighbour warpAffine (dst pixel -> source pixel by
+            the inverse map, zeros outside)."""
+            w, h = int(self.image_size[0]), int(self.image_size[1])
+            inv = np.linalg.inv(np.vstack([trans, [0.0, 0.0, 1.0]]))[:2]
+            ys, xs = np.mgrid[0:h, 0:w]
+            src = inv @ np.stack([xs.ravel(), ys.ravel(),
+                                  np.ones(h * w)])
+            sx = np.floor(src[0] + 0.5).astype(np.int64)
+            sy = np.floor(src[1] + 0.5).astype(np.int64)
+            ok = ((sx >= 0) & (sx < image.shape[1]) & (sy >= 0)
+                  & (sy < image.shape[0]))
+            out = np.zeros((h * w, image.shape[2]), image.dtype)
+            out[ok] = image[sy[ok], sx[ok]]
+            return out.reshape(h, w, image.shape[2])
+
+    return MemoryCOCO(image_width=TRAIN_RES[1], image_height=TRAIN_RES[0],
+                      **kw)
+
+
+def _train_f32_run(device, sd, batch, cfg, momentum_off=False):
+    """A fresh W48 from ``sd`` on ``device``: one flip-test eval step, then
+    one SGD train step (momentum 0, lr 1e-2). Returns the results on the
+    host."""
+    from simple_hrnet_tpu_torch.models import hrnet
+    from simple_hrnet_tpu_torch.train import losses, steps
+
+    model = hrnet.HRNet(48, 17)
+    model.load_state_dict(sd)
+    model.to(device)
+    if device.type == 'cuda':
+        model.to(memory_format=torch.channels_last)
+    opt, sched = steps.make_optimizer(model, 'SGD', lr=1e-2, momentum=0.0)
+    train = steps.make_train_step(model, losses.joints_mse_loss, opt, sched,
+                                  device_targets=cfg)
+    if momentum_off:  # the control: one BN's momentum off by 10%
+        model.stage2[0].branches[0][0].bn1.momentum = 0.11
+    evaluate = steps.make_eval_step(model, losses.joints_mse_loss,
+                                    flip_pairs=FLIP_PAIRS,
+                                    device_targets=cfg)
+    ev_loss, ev_out = evaluate(batch)[:2]
+    loss, out = train(batch)[:2]
+    return {'eval_loss': float(ev_loss), 'eval_out': ev_out.cpu(),
+            'loss': float(loss), 'out': out.cpu(),
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def _train_errors(run, ref, sd):
+    """Each TRAIN_LIMITS quantity of ``run`` against ``ref``."""
+    err = {'loss': abs(run['loss'] / ref['loss'] - 1),
+           'eval_loss': abs(run['eval_loss'] / ref['eval_loss'] - 1),
+           'heatmaps': rel_err(run['out'], ref['out'])[1],
+           'eval_heatmaps': rel_err(run['eval_out'], ref['eval_out'])[1]}
+    d_run, d_ref, stats = [], [], 0.0
+    for k, v in ref['state'].items():
+        if k.endswith(('running_mean', 'running_var')):
+            stats = max(stats, ((run['state'][k] - v).abs().max()
+                                / v.abs().max()).item())
+        elif v.is_floating_point():
+            d_run.append((run['state'][k] - sd[k]).ravel())
+            d_ref.append((v - sd[k]).ravel())
+    d_run, d_ref = torch.cat(d_run), torch.cat(d_ref)
+    err['update'] = ((d_run - d_ref).norm() / d_ref.norm()).item()
+    err['running_stats'] = stats
+    return err
+
+
+def check_train_f32(dev, card, root):
+    """Phase 9's f32 check (see the module docstring). The card runs the
+    device-target tail, the CPU the host tail of the same items."""
+    from simple_hrnet_tpu_torch.data.loader import default_collate
+    from simple_hrnet_tpu_torch.models import hrnet
+
+    host_ds = memory_coco(root_path=root, data_version='val2017',
+                          is_train=False)
+    raw_ds = memory_coco(root_path=root, data_version='val2017',
+                         is_train=False, device_targets=True)
+    image, target, tw, _ = default_collate([host_ds[i] for i in (0, 1)])
+    host = {'image': image, 'target': target, 'target_weight': tw}
+    raw, joints, vis, _ = default_collate([raw_ds[i] for i in (0, 1)])
+    raw_batch = {'image': raw, 'joints': joints, 'joints_vis': vis}
+    cfg = {'heatmap_size': raw_ds.heatmap_size,
+           'image_size': raw_ds.image_size,
+           'heatmap_sigma': raw_ds.heatmap_sigma, 'joints_weight': None}
+
+    model = hrnet.init(48, 17, seed=1)
+    g = torch.Generator().manual_seed(2)
+    for m in model.modules():  # eval reads the running statistics
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.uniform_(-0.5, 0.5, generator=g)
+            m.running_var.uniform_(0.5, 2.0, generator=g)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+
+    # the steps run in true f32 and put back the TF32 flags they found
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    card_run = _train_f32_run(dev, sd, raw_batch, cfg)
+    if not (torch.backends.cuda.matmul.allow_tf32
+            and torch.backends.cudnn.allow_tf32):
+        raise AssertionError('a train or eval step left a TF32 flag off')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cpu_run = _train_f32_run(torch.device('cpu'), sd, host, None)
+    cpu_s = time.perf_counter() - t0
+    # the yardstick: the CPU against itself on one thread (another
+    # summation order, the same arithmetic)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        noise = _train_errors(_train_f32_run(torch.device('cpu'), sd, host,
+                                             None), cpu_run, sd)
+    finally:
+        torch.set_num_threads(threads)
+    err = _train_errors(card_run, cpu_run, sd)
+    bad = {k: v for k, v in err.items() if not v <= TRAIN_LIMITS[k]}
+    if bad:
+        raise AssertionError(f'phase 9 f32: card vs CPU outside the limits '
+                             f'{bad} (limits {TRAIN_LIMITS})')
+    controls = {}
+    weights = np.ones((17, 1), np.float32)
+    weights[3] = 1.01
+    for name, run in (
+            ('bn_momentum', _train_f32_run(dev, sd, raw_batch, cfg,
+                                           momentum_off=True)),
+            ('joint_weight', _train_f32_run(
+                dev, sd, raw_batch, dict(cfg, joints_weight=weights)))):
+        c_err = _train_errors(run, cpu_run, sd)
+        controls[name] = {k: v for k, v in c_err.items()
+                          if v > TRAIN_LIMITS[k]}
+        if not controls[name]:
+            raise AssertionError(f'phase 9 f32 control {name} stayed within '
+                                 f'the limits: {c_err}')
+    print(f'phase 9 [{card}]: W48-384x288 f32 train step + flip-test eval '
+          f'step at batch 2, card (device targets) vs CPU (host targets, '
+          f'{cpu_s:.1f} s): ' + ', '.join(f'{k} {v:.3e}' for k, v in
+                                          err.items())
+          + f' (limits {TRAIN_LIMITS}); the CPU on 1 thread against '
+          f'{threads}: ' + ', '.join(f'{k} {v:.3e}' for k, v in
+                                     noise.items())
+          + f'; controls outside: {controls}', flush=True)
+    return {'errors': err, 'limits': TRAIN_LIMITS, 'controls': controls,
+            'cpu_one_thread': noise, 'cpu_s': cpu_s}
+
+
+def _state_equal(a, b):
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def run_train_bf16(dev, tmp, card, root):
+    """Phase 9's bf16 run (see the module docstring)."""
+    from simple_hrnet_tpu_torch.train.trainer import COCOTrain
+    from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
+
+    out = {}
+    t0 = time.perf_counter()
+    trainer = COCOTrain(
+        exp_name='phase9', epochs=1, batch_size=TRAIN_BATCH, num_workers=4,
+        ds_train=memory_coco(root_path=root, data_version='train2017',
+                             is_train=True),
+        ds_val=memory_coco(root_path=root, data_version='val2017',
+                           is_train=False),
+        lr=1e-3, optimizer='Adam', log_path=os.path.join(tmp, 'train_logs'),
+        use_tensorboard=False, model_c=48, model_nof_joints=17,
+        flip_test_images=True, model_name='HRNet', seed=1,
+        dtype='bfloat16', device=dev)
+    trainer.run()
+    torch.cuda.synchronize()
+    out['epoch_s'] = time.perf_counter() - t0
+    for k in ('mean_loss_train', 'mean_loss_val', 'mean_acc_val',
+              'mean_mAP_val'):
+        out[k] = float(getattr(trainer, k))
+    if not (np.isfinite(out['mean_loss_train'])
+            and np.isfinite(out['mean_loss_val'])):
+        raise AssertionError(f'phase 9 bf16: non-finite loss {out}')
+    if not 0.0 <= out['mean_mAP_val'] <= 1.0:
+        raise AssertionError(f'phase 9 bf16: mAP {out["mean_mAP_val"]}')
+
+    # checkpoint_last holds the state _checkpoint saw, bit for bit
+    step, state, cfg = ckpt.load_train(os.path.join(trainer.log_path,
+                                                    'checkpoint_last'))
+    opt_now = trainer.optimizer.state_dict()
+    same = (step == 1 and cfg['best_loss'] == trainer.best_loss
+            and cfg['best_mAP'] == trainer.best_mAP
+            and _state_equal(state['model'], trainer.model.state_dict())
+            and all(_state_equal(st, opt_now['state'][i])
+                    for i, st in state['optimizer']['state'].items())
+            and state['scheduler'] == trainer.scheduler.state_dict())
+    if not same:
+        raise AssertionError('phase 9 bf16: load_train of checkpoint_last '
+                             'differs from the trainer state')
+    out['load_train_bitwise'] = True
+
+    it = iter(trainer.dl_train)
+    image, target, tw, _ = next(it)
+    it.close()
+    batch = {'image': image, 'target': target, 'target_weight': tw}
+    step_fn = trainer._train_step
+    losses = [float(step_fn(batch)[0]) for _ in range(REPEAT_STEPS)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f'phase 9 bf16: the loss on one repeated batch '
+                             f'did not fall: {losses}')
+    out['repeat_losses'] = losses
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    step_ms = float(np.median(secs)) * 1e3
+    out['step_ms'] = {'median': step_ms, 'min': min(secs) * 1e3,
+                      'max': max(secs) * 1e3}
+    out['images_per_s'] = TRAIN_BATCH / step_ms * 1e3
+    out['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy, rows, port = device_profile(lambda: step_fn(batch))
+    out['device_busy_ms'] = busy
+    out['idle_share'] = max(0.0, 1.0 - busy / step_ms)
+    out['top_kernels'] = [[round(ms, 3), n, key[:80]]
+                          for ms, n, key in rows[:10]]
+    if port:
+        raise AssertionError(f'phase 9 bf16: port kernels in a train step '
+                             f'profile: {port}')
+    print(f'phase 9 [{card}]: COCOTrain W48-384x288 bf16 batch '
+          f'{TRAIN_BATCH} Adam, 2 train steps + validation (16, flip test) + '
+          f'checkpoint in {out["epoch_s"]:.1f} s: train loss '
+          f'{out["mean_loss_train"]:.5f}, val loss {out["mean_loss_val"]:.5f}'
+          f', val AP {out["mean_mAP_val"]:.4f}; load_train bit for bit',
+          flush=True)
+    print(f'phase 9 [{card}]: loss on one batch over {REPEAT_STEPS} steps: '
+          + ' '.join(f'{v:.5f}' for v in losses), flush=True)
+    print(f'phase 9 [{card}]: train step median {step_ms:.2f} ms (min '
+          f'{out["step_ms"]["min"]:.2f}, max {out["step_ms"]["max"]:.2f}) '
+          f'over {TIMED_STEPS}, {out["images_per_s"]:.1f} images/s, peak '
+          f'memory {out["peak_gib"]:.2f} GiB; profile of one step: device '
+          f'busy {busy:.2f} ms, idle share {out["idle_share"]:.3f}; top '
+          f'(ms, calls, name):', flush=True)
+    for ms, n, key in rows[:12]:
+        print(f'    {ms:9.3f} {n:6d}  {key[:110]}')
+    return out
+
+
+def run_train_phase(dev, tmp, counters):
+    """Phase 9: the training path. Returns its record; every port kernel's
+    launch count must stay 0 across it."""
+    t0 = time.perf_counter()
+    card = card_line()
+    root = os.path.join(tmp, 'coco')
+    write_memory_coco(root)
+    for k in counters.values():
+        k.launches = 0
+    summary = {'card': card, 'f32': check_train_f32(dev, card, root),
+               'bf16': run_train_bf16(dev, tmp, card, root)}
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f'phase 9: port kernels launched in training '
+                             f'or evaluation: {launches}')
+    summary['launches'] = launches
+    summary['seconds'] = time.perf_counter() - t0
+    print(f'phase 9: no port kernel launched ({launches}); '
+          f'{summary["seconds"]:.1f} s', flush=True)
+    return summary
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -2222,10 +2588,23 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_counters():
+    """Each port kernel's wrapper, whose ``launches`` counts its launches."""
+    from simple_hrnet_tpu_torch.ops.cuda import (fuse_up, fused_block,
+                                                 int8_chain, nms,
+                                                 winograd_chain)
+    return {'nms': nms.nms, 'basic_chain': fused_block.basic_chain,
+            'fuse_up': fuse_up.fuse_up,
+            'wino_chain': winograd_chain.wino_chain,
+            'int8_chain': int8_chain.int8_chain}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--kernels-only', action='store_true',
                     help='stop after the kernel checks (phase 2)')
+    ap.add_argument('--train-only', action='store_true',
+                    help='run phase 9 only (it builds no kernel)')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2238,6 +2617,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    if args.train_only:
+        # phase 9 launches no port kernel, so it needs none built
+        counters = kernel_counters()
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+            summary = run_train_phase(dev, tmp, counters)
+        print(json.dumps({'train': summary}))
+        print(card_line())
+        return 0
+
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f'phase 1: built {sorted(secs)} in '
@@ -2246,13 +2635,7 @@ def main():
     for name, log in build.BUILD_LOGS.items():
         print(f'--- nvcc {name} ---\n{log.strip()}')
 
-    from simple_hrnet_tpu_torch.ops.cuda import (fuse_up, fused_block,
-                                                 int8_chain, nms,
-                                                 winograd_chain)
-    counters = {'nms': nms.nms, 'basic_chain': fused_block.basic_chain,
-                'fuse_up': fuse_up.fuse_up,
-                'wino_chain': winograd_chain.wino_chain,
-                'int8_chain': int8_chain.int8_chain}
+    counters = kernel_counters()
 
     rec = {}
     check_nms(dev, rec)
@@ -2291,6 +2674,7 @@ def main():
             engine_launches, summary['engine'] = run_engine_phase(
                 tmp, pths, weights, counters, summary)
             stream_launches.update(engine_launches)
+            summary['train'] = run_train_phase(dev, tmp, counters)
             for run, launches in stream_launches.items():
                 for k in counters:
                     totals[k] += launches[k]

@@ -1,0 +1,416 @@
+"""Training harness: ``Train`` and ``COCOTrain`` (reference
+training/Train.py:19-372, training/COCO.py:11-262).
+
+Counterpart of ``simple_hrnet_tpu/train/trainer.py``, with its constructor
+surface plus ``device``. Per epoch: the train step over the prefetching
+loader, PCK and COCO AP (OKS-NMS and the evaluator), flip-test
+validation, the multi-step LR stepped per step, tensorboard scalars and
+image grids, and checkpoints: ``checkpoint_last`` (``save_train``) and
+``params_{last,best_loss,best_acc,best_mAP}.npz`` in the JAX package's
+layout. The model trains unfolded, in ``train()`` mode, through autograd
+over cuDNN convs; it is never packed for the inference kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from datetime import datetime
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from simple_hrnet_tpu_torch.models import hrnet, poseresnet
+from simple_hrnet_tpu_torch.ops import decode as D
+from simple_hrnet_tpu_torch.train import losses as losses_mod
+from simple_hrnet_tpu_torch.train import steps as steps_mod
+from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
+from simple_hrnet_tpu_torch.utils.device import resolve_device
+
+
+def build_model(model_name: str, model_c: int, model_nof_joints: int,
+                seed: int, device: torch.device) -> nn.Module:
+    """A fresh HRNet-W``model_c`` or PoseResNet-``model_c`` on ``device``
+    (seeded torch-default init), channels_last on a card."""
+    if model_name in ('HRNet', 'hrnet'):
+        model = hrnet.init(model_c, model_nof_joints, seed=seed)
+    else:
+        model = poseresnet.init(model_c, model_nof_joints, seed=seed)
+    model.to(device)
+    if device.type == 'cuda':
+        model.to(memory_format=torch.channels_last)
+    return model
+
+
+def _merge_matching(model: nn.Module, state_dict) -> nn.Module:
+    """Load the entries of ``state_dict`` whose name and shape match the
+    model's (the reference's ``strict=False`` load, Train.py:183-191)."""
+    own = model.state_dict()
+    keep = {k: v for k, v in state_dict.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(keep, strict=False)
+    return model
+
+
+class Train:
+    """Generic trainer with the reference's constructor surface
+    (Train.py:29-57), the JAX package's additions, and ``device``
+    (``None``: the card; ``'cpu'`` only when asked)."""
+
+    def __init__(self,
+                 exp_name: str,
+                 ds_train,
+                 ds_val,
+                 epochs: int = 210,
+                 batch_size: int = 16,
+                 num_workers: int = 4,
+                 loss: str = 'JointsMSELoss',
+                 lr: float = 0.001,
+                 lr_decay: bool = True,
+                 lr_decay_steps=(170, 200),
+                 lr_decay_gamma: float = 0.1,
+                 optimizer: str = 'Adam',
+                 weight_decay: float = 0.,
+                 momentum: float = 0.9,
+                 nesterov: bool = False,
+                 pretrained_weight_path: Optional[str] = None,
+                 checkpoint_path: Optional[str] = None,
+                 log_path: str = './logs',
+                 use_tensorboard: bool = True,
+                 model_c: int = 48,
+                 model_nof_joints: int = 17,
+                 model_bn_momentum: float = 0.1,
+                 flip_test_images: bool = True,
+                 model_name: str = 'HRNet',
+                 mesh=None,
+                 seed: int = 0,
+                 resume_dir: Optional[str] = None,
+                 debug_nans: bool = False,
+                 dtype: Optional[str] = None,
+                 use_grouped_trunk: bool = False,
+                 use_process_workers: bool = False,
+                 device_targets: bool = False,
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                'mesh (data-parallel training) is not ported yet: ROADMAP '
+                'A14')
+        if use_grouped_trunk:
+            raise NotImplementedError(
+                'use_grouped_trunk is the TPU 128-lane grouped trunk, which '
+                'the port does not carry (ROADMAP queue A)')
+        self.device = resolve_device(device)
+        self.exp_name = exp_name
+        self.ds_train = ds_train
+        self.ds_val = ds_val
+        self.epochs = epochs
+        self.batch_size = batch_size
+        self.loss_name = loss
+        self.model_c = model_c
+        self.model_nof_joints = model_nof_joints
+        self.model_bn_momentum = model_bn_momentum
+        self.flip_test_images = flip_test_images
+        self.debug_nans = debug_nans
+        self.epoch = 0
+
+        ts = datetime.now().strftime('%Y%m%d_%H%M')
+        self.log_path = os.path.join(log_path, f'{ts}_{exp_name}')
+        os.makedirs(self.log_path, exist_ok=True)
+
+        self.use_tensorboard = use_tensorboard
+        self.summary_writer = None
+        if use_tensorboard:
+            import tensorboardX
+            self.summary_writer = tensorboardX.SummaryWriter(self.log_path)
+
+        parameters = {k: v for k, v in locals().items()
+                      if k not in ('self', 'ds_train', 'ds_val')}
+        with open(os.path.join(self.log_path, 'parameters.txt'), 'w') as fd:
+            fd.write(str(parameters))
+        if self.summary_writer is not None:
+            self.summary_writer.add_text('parameters', str(parameters))
+
+        self.model = build_model(model_name, model_c, model_nof_joints, seed,
+                                 self.device)
+        self.loss_fn = losses_mod.get_loss(loss)
+
+        if pretrained_weight_path is not None:
+            _merge_matching(self.model, ckpt.load(pretrained_weight_path))
+            print(f'Pre-trained weights loaded from {pretrained_weight_path}')
+
+        from simple_hrnet_tpu_torch.data.loader import DataLoader
+        self.dl_train = DataLoader(ds_train, batch_size=batch_size,
+                                   shuffle=True, num_workers=num_workers,
+                                   drop_last=True, seed=seed,
+                                   use_processes=use_process_workers)
+        self.dl_val = DataLoader(ds_val, batch_size=batch_size,
+                                 shuffle=False, num_workers=num_workers,
+                                 use_processes=use_process_workers)
+        self.len_dl_train = len(self.dl_train)
+        self.len_dl_val = len(self.dl_val)
+
+        self.optimizer, self.scheduler = steps_mod.make_optimizer(
+            self.model, optimizer, lr=lr, momentum=momentum,
+            nesterov=nesterov, weight_decay=weight_decay, lr_decay=lr_decay,
+            lr_decay_steps=lr_decay_steps, lr_decay_gamma=lr_decay_gamma,
+            steps_per_epoch=self.len_dl_train)
+
+        # resume (Train.py:195-204); ``resume_dir`` continues from a
+        # checkpoint_last that an earlier run of the experiment left
+        if checkpoint_path is None and resume_dir is not None:
+            cand = os.path.join(resume_dir, 'checkpoint_last')
+            if os.path.isdir(cand):
+                checkpoint_path = cand
+        resumed = {}
+        if checkpoint_path is not None:
+            print(f'Loading checkpoint {checkpoint_path} ...')
+            step, state, cfg = ckpt.load_train(checkpoint_path)
+            self.model.load_state_dict(state['model'])
+            self.optimizer.load_state_dict(state['optimizer'])
+            if state['scheduler'] is not None:
+                self.scheduler.load_state_dict(state['scheduler'])
+            resumed = cfg or state['config'] or {}
+            self.epoch = resumed.get('epoch', state['epoch'])
+            print(f'Resuming from epoch {self.epoch}')
+
+        # device_targets: the datasets emit the raw pipeline tail and the
+        # steps normalize and stamp the targets on the device
+        self.device_targets = device_targets
+        dt_cfg = dt_cfg_val = None
+        if device_targets:
+            if not getattr(ds_train, 'device_targets', False) or (
+                    ds_val is not None
+                    and not getattr(ds_val, 'device_targets', False)):
+                raise ValueError(
+                    'Train(device_targets=True) needs BOTH datasets built '
+                    'with device_targets=True (they must emit the raw '
+                    'pipeline tail)')
+
+            def _dt_cfg(ds):
+                # each step stamps with its own dataset's geometry
+                jw = ds.joints_weight \
+                    if getattr(ds, 'use_different_joints_weight', False) \
+                    else None
+                return {'heatmap_size': tuple(ds.heatmap_size),
+                        'image_size': tuple(ds.image_size),
+                        'heatmap_sigma': ds.heatmap_sigma,
+                        'joints_weight': None if jw is None
+                        else np.asarray(jw, np.float32)}
+
+            dt_cfg = _dt_cfg(ds_train)
+            dt_cfg_val = _dt_cfg(ds_val) if ds_val is not None else dt_cfg
+
+        self._train_step = steps_mod.make_train_step(
+            self.model, self.loss_fn, self.optimizer, self.scheduler,
+            dtype=dtype, device_targets=dt_cfg,
+            bn_momentum=model_bn_momentum)
+        flip_pairs = getattr(ds_val, 'flip_pairs', None) \
+            if flip_test_images else None
+        self._eval_step = steps_mod.make_eval_step(
+            self.model, self.loss_fn, flip_pairs=flip_pairs, dtype=dtype,
+            device_targets=dt_cfg_val)
+
+        # the bests come back with a resume, so that a later epoch cannot
+        # overwrite params_best_*.npz with a worse model
+        self.best_loss = resumed.get('best_loss')
+        self.best_acc = resumed.get('best_acc')
+        self.best_mAP = resumed.get('best_mAP')
+        self.mean_loss_train = 0.
+        self.mean_acc_train = 0.
+        self.mean_loss_val = 0.
+        self.mean_acc_val = 0.
+        # None until a subclass computes an overall metric
+        self.mean_mAP_val = None
+
+    def _make_batch(self, image, second, third):
+        """The step's batch dict: (image, target, target_weight), or with
+        device_targets (raw [0, 255] image, joints, joints_vis)."""
+        keys = (('image', 'joints', 'joints_vis') if self.device_targets
+                else ('image', 'target', 'target_weight'))
+        return dict(zip(keys, (image, second, third)))
+
+    def _train(self):
+        self.mean_loss_train = 0.
+        self.mean_acc_train = 0.
+        # epoch e shuffles with seed + e however the run got to it, so a
+        # resumed run sees the batches a straight run would
+        self.dl_train.set_epoch(self.epoch)
+        anomaly = (torch.autograd.detect_anomaly(check_nan=True)
+                   if self.debug_nans else contextlib.nullcontext())
+        for step, (image, second, third, joints_data) in enumerate(
+                self.dl_train):
+            batch = self._make_batch(image, second, third)
+            with anomaly:
+                res = self._train_step(batch)
+            loss, output = res[0], res[1]
+            target = res[2] if self.device_targets else batch['target']
+            accs, avg_acc, cnt, joints_preds, joints_target = \
+                self.ds_train.evaluate_accuracy(output, target)
+            loss = float(loss)
+            avg_acc = float(avg_acc)
+            self.mean_loss_train += loss
+            self.mean_acc_train += avg_acc
+            self._log_step('train', step, loss, avg_acc, image, target,
+                           joints_target, output, joints_preds, joints_data)
+        self.mean_loss_train /= self.len_dl_train
+        self.mean_acc_train /= self.len_dl_train
+        print(f'\nTrain: Loss {self.mean_loss_train:f} - '
+              f'Accuracy {self.mean_acc_train:f}')
+
+    def _val(self):
+        self.mean_loss_val = 0.
+        self.mean_acc_val = 0.
+        for step, (image, second, third, joints_data) in enumerate(
+                self.dl_val):
+            batch = self._make_batch(image, second, third)
+            res = self._eval_step(batch)
+            loss, output = res[0], res[1]
+            target = res[2] if self.device_targets else batch['target']
+            accs, avg_acc, cnt, joints_preds, joints_target = \
+                self.ds_val.evaluate_accuracy(output, target)
+            self.mean_loss_val += float(loss)
+            self.mean_acc_val += float(avg_acc)
+            self._log_step('val', step, float(loss), float(avg_acc), image,
+                           target, joints_target, output, joints_preds,
+                           joints_data)
+        self.mean_loss_val /= self.len_dl_val
+        self.mean_acc_val /= self.len_dl_val
+        print(f'\nValidation: Loss {self.mean_loss_val:f} - '
+              f'Accuracy {self.mean_acc_val:f}')
+
+    def _log_step(self, prefix, step, loss, acc, image, target,
+                  joints_target, output, joints_preds, joints_data):
+        if self.summary_writer is None:
+            return
+        steps_per = self.len_dl_train if prefix == 'train' else self.len_dl_val
+        global_step = step + self.epoch * steps_per
+        self.summary_writer.add_scalar(f'{prefix}_loss', loss, global_step)
+        self.summary_writer.add_scalar(f'{prefix}_acc', acc, global_step)
+        if step == 0:
+            from simple_hrnet_tpu_torch.utils.visualization import save_images
+            image = np.asarray(image)
+            if self.device_targets:
+                # save_images denormalizes an ImageNet-normalized image
+                from simple_hrnet_tpu_torch.data.coco import (INV255_STD,
+                                                              MEAN255)
+                image = (image - MEAN255) * INV255_STD
+
+            def host(t):
+                return t.detach().cpu().numpy() if isinstance(
+                    t, torch.Tensor) else np.asarray(t)
+
+            save_images(image, host(target), host(joints_target),
+                        host(output), host(joints_preds),
+                        joints_data['joints_visibility'],
+                        self.summary_writer, step=global_step,
+                        prefix=f'{prefix}_')
+
+    def _checkpoint(self):
+        """last and best loss/acc/mAP (Train.py:313-332)."""
+        if self.best_loss is None or self.best_loss > self.mean_loss_val:
+            self.best_loss = self.mean_loss_val
+            print(f'best_loss {self.best_loss:f} at epoch {self.epoch + 1}')
+            ckpt.save(os.path.join(self.log_path, 'params_best_loss.npz'),
+                      self.model)
+        if self.best_acc is None or self.best_acc < self.mean_acc_val:
+            self.best_acc = self.mean_acc_val
+            print(f'best_acc {self.best_acc:f} at epoch {self.epoch + 1}')
+            ckpt.save(os.path.join(self.log_path, 'params_best_acc.npz'),
+                      self.model)
+        # a best mAP only where the trainer computed the metric
+        if self.mean_mAP_val is not None and (
+                self.best_mAP is None or self.best_mAP < self.mean_mAP_val):
+            self.best_mAP = self.mean_mAP_val
+            print(f'best_mAP {self.best_mAP:f} at epoch {self.epoch + 1}')
+            ckpt.save(os.path.join(self.log_path, 'params_best_mAP.npz'),
+                      self.model)
+
+        # checkpoint_last carries the updated bests for a resume
+        ckpt.save_train(os.path.join(self.log_path, 'checkpoint_last'),
+                        self.epoch + 1, self.model, self.optimizer,
+                        self.scheduler,
+                        config={'epoch': self.epoch + 1,
+                                'model_c': self.model_c,
+                                'nof_joints': self.model_nof_joints,
+                                'best_loss': self.best_loss,
+                                'best_acc': self.best_acc,
+                                'best_mAP': self.best_mAP})
+        ckpt.save(os.path.join(self.log_path, 'params_last.npz'), self.model)
+
+    def run(self):
+        """Epoch loop (Train.py:334-370)."""
+        for self.epoch in range(self.epoch, self.epochs):
+            print(f'\nEpoch {self.epoch + 1} of {self.epochs} '
+                  f'@ {datetime.now().strftime("%Y-%m-%d %H:%M:%S")}')
+            self._train()
+            self._val()
+            self._checkpoint()
+
+
+class COCOTrain(Train):
+    """COCO trainer adding the per-epoch COCO AP (training/COCO.py:11)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._reset_epoch_preds()
+
+    def _reset_epoch_preds(self):
+        self._all_preds = []
+        self._all_boxes = []
+        self._image_paths = []
+
+    def _accumulate(self, output, joints_data):
+        c = np.asarray(joints_data['center'])
+        s = np.asarray(joints_data['scale'])
+        score = np.asarray(joints_data['score'])
+        preds, maxvals = D.get_final_preds(output, c, s, 200.0)
+        preds = preds.cpu().numpy()
+        maxvals = maxvals.cpu().numpy()
+        n = preds.shape[0]
+        boxes = np.zeros((n, 6), np.float32)
+        boxes[:, 0:2] = c
+        boxes[:, 2:4] = s
+        boxes[:, 4] = np.prod(s * 200.0, axis=1)
+        boxes[:, 5] = score
+        self._all_preds.append(
+            np.concatenate([preds, maxvals], axis=2).astype(np.float32))
+        self._all_boxes.append(boxes)
+        self._image_paths.extend(list(joints_data['imgPath']))
+
+    def _log_step(self, prefix, step, loss, acc, image, target,
+                  joints_target, output, joints_preds, joints_data):
+        super()._log_step(prefix, step, loss, acc, image, target,
+                          joints_target, output, joints_preds, joints_data)
+        self._accumulate(output, joints_data)
+
+    def _train(self):
+        self._reset_epoch_preds()
+        super()._train()
+        print('\nTrain AP/AR')
+        self.train_accs, self.mean_mAP_train = self._overall(self.ds_train)
+
+    def _val(self):
+        self._reset_epoch_preds()
+        super()._val()
+        print('\nVal AP/AR')
+        self.val_accs, self.mean_mAP_val = self._overall(self.ds_val)
+
+    def _overall(self, ds):
+        if not self._all_preds:
+            return {}, 0.0
+        preds = np.concatenate(self._all_preds)
+        boxes = np.concatenate(self._all_boxes)
+        return ds.evaluate_overall_accuracy(
+            preds, boxes, self._image_paths, output_dir=self.log_path)
+
+
+class MPIITrain(COCOTrain):
+    """The MPII trainer (PCKh@0.5 as the overall metric) is not ported
+    yet: it comes with the MPII dataset (ROADMAP A13)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'MPIITrain is not ported yet: it comes with data/mpii.py '
+            '(ROADMAP A13, the MPII slice)')
