@@ -128,12 +128,42 @@ Phases (any failure exits nonzero):
      loss on one batch repeated for 20 steps must fall; the step is timed
      (median of 10 after warmup, images/s, peak memory) and profiled
      (device busy, idle share, top kernels). No port kernel may launch
-     anywhere in the phase.
+     anywhere in the phase;
+ 10. data parallelism and the host libraries (``parallel/``,
+     ``data/native.py``). The facade on a mesh, W48-384x288 bf16 and W32
+     int8 with phase 4's seeded files and YOLOv3-416: on ``make_mesh(1)``
+     ``predict`` on 1 and 8 frames equals the meshless facade bit for bit;
+     on a mesh of two replicas on the one card (``Mesh([cuda:0,
+     cuda:0])``: the split, the per-replica dispatch and the gather all
+     run) the boxes and people equal the meshless facade's and the
+     heatmaps are within phase 2's bf16 limit; launches counted per call
+     (the chain 8 times a pose forward of each replica, at batches phase 2
+     checked), host time of the 8-frame call (W48 on both meshes, int8
+     on the two replicas) and, on the W48 two-replica mesh, its device
+     busy time and idle share;
+     the fixed chunked stream (4 frames a launch) on the two-replica mesh
+     with its dispatch guarded as in phase 5. Training: in a one-rank NCCL
+     group, ``MPIITrain`` at the ``train_mpii`` defaults (HRNet-W32
+     256x256, 16 joints, batch 16, Adam) in bf16 over seeded annotations
+     and in-memory images runs an epoch of 2 steps and validation with
+     PCKh, then its step is timed (median of 10, images/s, peak memory)
+     and profiled (device busy, idle share); the W48 f32 train and eval
+     steps at batch 2 under that mesh (DDP; one rank keeps
+     ``BatchNorm2d``) against the meshless steps within ``TRAIN_LIMITS``;
+     two processes over gloo on the card (CUDA tensors, each process's BNs
+     ``GlobalBatchNorm2d``), each with half of a batch of 4, against the
+     one-process steps on the whole batch within ``TRAIN_LIMITS``, with
+     phase 9's two controls outside; no port kernel launches in training.
+     The host libraries: ``nms_numpy``'s host-library route equals its
+     numpy route on the YOLOv3 detections of phase 4's frames; the JPEG
+     library is built and checked where ``jpeglib.h`` is installed, and
+     the phase says so where it is not.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
 ``--kernels-only`` flag stops after phase 2 (for iterating on a kernel);
-``--train-only`` runs phase 9 alone.
+``--train-only`` runs phase 9 alone, ``--parallel-only`` phase 10 (after
+building the kernels).
 Imports nothing of JAX.
 """
 
@@ -2298,44 +2328,51 @@ def write_memory_coco(root, seed=9):
                        'categories': [{'id': 1, 'name': 'person'}]}, f)
 
 
+class MemoryImages:
+    """A dataset's image read and warp in numpy (the card host has no cv2):
+    seeded 480x640 block images named by the file's number, and a
+    nearest-neighbour warpAffine."""
+
+    def _read_image(self, path):
+        img_id = int(os.path.basename(path)[:-4].lstrip('im') or 0)
+        blocks = np.random.default_rng(img_id).integers(
+            0, 256, (30, 40, 3), dtype=np.uint8)
+        return np.repeat(np.repeat(blocks, 16, axis=0), 16, axis=1)
+
+    def _warp(self, image, trans):
+        """Nearest-neighbour warpAffine (dst pixel -> source pixel by the
+        inverse map, zeros outside)."""
+        w, h = int(self.image_size[0]), int(self.image_size[1])
+        inv = np.linalg.inv(np.vstack([trans, [0.0, 0.0, 1.0]]))[:2]
+        ys, xs = np.mgrid[0:h, 0:w]
+        src = inv @ np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)])
+        sx = np.floor(src[0] + 0.5).astype(np.int64)
+        sy = np.floor(src[1] + 0.5).astype(np.int64)
+        ok = ((sx >= 0) & (sx < image.shape[1]) & (sy >= 0)
+              & (sy < image.shape[0]))
+        out = np.zeros((h * w, image.shape[2]), image.dtype)
+        out[ok] = image[sy[ok], sx[ok]]
+        return out.reshape(h, w, image.shape[2])
+
+
 def memory_coco(**kw):
     """The port's ``COCODataset`` over seeded in-memory 480x640 images: its
-    image read and warp replaced (the card host has no cv2), everything
-    else, augmentation, targets and ``evaluate_overall_accuracy`` (OKS
+    image read and warp replaced (``MemoryImages``), everything else,
+    augmentation, targets and ``evaluate_overall_accuracy`` (OKS
     rescoring, OKS-NMS, the native COCO AP) as it is."""
     from simple_hrnet_tpu_torch.data.coco import COCODataset
 
-    class MemoryCOCO(COCODataset):
-        def _read_image(self, path):
-            img_id = int(os.path.basename(path)[:-4])
-            blocks = np.random.default_rng(img_id).integers(
-                0, 256, (30, 40, 3), dtype=np.uint8)
-            return np.repeat(np.repeat(blocks, 16, axis=0), 16, axis=1)
-
-        def _warp(self, image, trans):
-            """Nearest-neighbour warpAffine (dst pixel -> source pixel by
-            the inverse map, zeros outside)."""
-            w, h = int(self.image_size[0]), int(self.image_size[1])
-            inv = np.linalg.inv(np.vstack([trans, [0.0, 0.0, 1.0]]))[:2]
-            ys, xs = np.mgrid[0:h, 0:w]
-            src = inv @ np.stack([xs.ravel(), ys.ravel(),
-                                  np.ones(h * w)])
-            sx = np.floor(src[0] + 0.5).astype(np.int64)
-            sy = np.floor(src[1] + 0.5).astype(np.int64)
-            ok = ((sx >= 0) & (sx < image.shape[1]) & (sy >= 0)
-                  & (sy < image.shape[0]))
-            out = np.zeros((h * w, image.shape[2]), image.dtype)
-            out[ok] = image[sy[ok], sx[ok]]
-            return out.reshape(h, w, image.shape[2])
+    class MemoryCOCO(MemoryImages, COCODataset):
+        pass
 
     return MemoryCOCO(image_width=TRAIN_RES[1], image_height=TRAIN_RES[0],
                       **kw)
 
 
-def _train_f32_run(device, sd, batch, cfg, momentum_off=False):
+def _train_f32_run(device, sd, batch, cfg, momentum_off=False, mesh=None):
     """A fresh W48 from ``sd`` on ``device``: one flip-test eval step, then
-    one SGD train step (momentum 0, lr 1e-2). Returns the results on the
-    host."""
+    one SGD train step (momentum 0, lr 1e-2), data-parallel over ``mesh``
+    when given. Returns the results on the host."""
     from simple_hrnet_tpu_torch.models import hrnet
     from simple_hrnet_tpu_torch.train import losses, steps
 
@@ -2346,12 +2383,12 @@ def _train_f32_run(device, sd, batch, cfg, momentum_off=False):
         model.to(memory_format=torch.channels_last)
     opt, sched = steps.make_optimizer(model, 'SGD', lr=1e-2, momentum=0.0)
     train = steps.make_train_step(model, losses.joints_mse_loss, opt, sched,
-                                  device_targets=cfg)
+                                  device_targets=cfg, mesh=mesh)
     if momentum_off:  # the control: one BN's momentum off by 10%
         model.stage2[0].branches[0][0].bn1.momentum = 0.11
     evaluate = steps.make_eval_step(model, losses.joints_mse_loss,
                                     flip_pairs=FLIP_PAIRS,
-                                    device_targets=cfg)
+                                    device_targets=cfg, mesh=mesh)
     ev_loss, ev_out = evaluate(batch)[:2]
     loss, out = train(batch)[:2]
     return {'eval_loss': float(ev_loss), 'eval_out': ev_out.cpu(),
@@ -2380,9 +2417,10 @@ def _train_errors(run, ref, sd):
     return err
 
 
-def check_train_f32(dev, card, root):
-    """Phase 9's f32 check (see the module docstring). The card runs the
-    device-target tail, the CPU the host tail of the same items."""
+def _train_f32_inputs(root, rows=(0, 1)):
+    """The f32 checks' inputs: the host-tail and device-target batches of
+    the val items ``rows``, the device-target config, and a seeded W48
+    state dict with randomized running statistics."""
     from simple_hrnet_tpu_torch.data.loader import default_collate
     from simple_hrnet_tpu_torch.models import hrnet
 
@@ -2390,9 +2428,9 @@ def check_train_f32(dev, card, root):
                           is_train=False)
     raw_ds = memory_coco(root_path=root, data_version='val2017',
                          is_train=False, device_targets=True)
-    image, target, tw, _ = default_collate([host_ds[i] for i in (0, 1)])
+    image, target, tw, _ = default_collate([host_ds[i] for i in rows])
     host = {'image': image, 'target': target, 'target_weight': tw}
-    raw, joints, vis, _ = default_collate([raw_ds[i] for i in (0, 1)])
+    raw, joints, vis, _ = default_collate([raw_ds[i] for i in rows])
     raw_batch = {'image': raw, 'joints': joints, 'joints_vis': vis}
     cfg = {'heatmap_size': raw_ds.heatmap_size,
            'image_size': raw_ds.image_size,
@@ -2405,6 +2443,33 @@ def check_train_f32(dev, card, root):
             m.running_mean.uniform_(-0.5, 0.5, generator=g)
             m.running_var.uniform_(0.5, 2.0, generator=g)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
+    return host, raw_batch, cfg, sd
+
+
+def _train_controls(dev, sd, raw_batch, cfg, ref):
+    """Phase 9's two controls against ``ref``: the quantities each moves
+    outside ``TRAIN_LIMITS`` (it fails if one moves none)."""
+    controls = {}
+    weights = np.ones((17, 1), np.float32)
+    weights[3] = 1.01
+    for name, run in (
+            ('bn_momentum', _train_f32_run(dev, sd, raw_batch, cfg,
+                                           momentum_off=True)),
+            ('joint_weight', _train_f32_run(
+                dev, sd, raw_batch, dict(cfg, joints_weight=weights)))):
+        c_err = _train_errors(run, ref, sd)
+        controls[name] = {k: v for k, v in c_err.items()
+                          if v > TRAIN_LIMITS[k]}
+        if not controls[name]:
+            raise AssertionError(f'f32 control {name} stayed within the '
+                                 f'limits: {c_err}')
+    return controls
+
+
+def check_train_f32(dev, card, root):
+    """Phase 9's f32 check (see the module docstring). The card runs the
+    device-target tail, the CPU the host tail of the same items."""
+    host, raw_batch, cfg, sd = _train_f32_inputs(root)
 
     # the steps run in true f32 and put back the TF32 flags they found
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -2432,20 +2497,7 @@ def check_train_f32(dev, card, root):
     if bad:
         raise AssertionError(f'phase 9 f32: card vs CPU outside the limits '
                              f'{bad} (limits {TRAIN_LIMITS})')
-    controls = {}
-    weights = np.ones((17, 1), np.float32)
-    weights[3] = 1.01
-    for name, run in (
-            ('bn_momentum', _train_f32_run(dev, sd, raw_batch, cfg,
-                                           momentum_off=True)),
-            ('joint_weight', _train_f32_run(
-                dev, sd, raw_batch, dict(cfg, joints_weight=weights)))):
-        c_err = _train_errors(run, cpu_run, sd)
-        controls[name] = {k: v for k, v in c_err.items()
-                          if v > TRAIN_LIMITS[k]}
-        if not controls[name]:
-            raise AssertionError(f'phase 9 f32 control {name} stayed within '
-                                 f'the limits: {c_err}')
+    controls = _train_controls(dev, sd, raw_batch, cfg, cpu_run)
     print(f'phase 9 [{card}]: W48-384x288 f32 train step + flip-test eval '
           f'step at batch 2, card (device targets) vs CPU (host targets, '
           f'{cpu_s:.1f} s): ' + ', '.join(f'{k} {v:.3e}' for k, v in
@@ -2581,6 +2633,508 @@ def run_train_phase(dev, tmp, counters):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism and the host libraries
+# ---------------------------------------------------------------------------
+
+# the facade paths on a mesh (phase 4's): W48 bf16 (K2) and W32 int8 (B4)
+PAR_PATHS = (MAIN_PATHS[0], MAIN_PATHS[2])
+PAR_STREAM = dict(max_people=16, batch_frames=4)  # fixed chunked
+PAR_STREAM_FRAMES = 16
+# (timed predict(8 frames) calls, profiled?) a mesh facade, by path. On
+# make_mesh(1) the facade runs phase 4's meshless code; int8's 8-frame
+# call takes ~1 s and its profile (the patch matrix's thousands of
+# launches) ~40 s, so int8 is timed once on the two replicas, unprofiled
+PAR_TIMING = {'w48_bf16': {'mesh1': (3, False), 'mesh2': (3, True)},
+              'w32_int8': {'mesh1': (0, False), 'mesh2': (1, False)}}
+MPII_RES = (256, 256)            # the train_mpii defaults
+MPII_WIDTH = 32
+MPII_BATCH = 16
+DP_ROWS = 4                      # the two-process step's global batch
+
+
+def _par_facade(path, pth, weights, mesh, detector=None):
+    """The path's facade, on ``mesh`` when given; with ``detector`` (the
+    meshless facade's YOLOv3) it is built without one and takes that one,
+    as tests/test_parallel.py builds its mesh facade."""
+    from simple_hrnet_tpu_torch import SimpleHRNet
+
+    _, c, res, dtype = path[:4]
+    model = SimpleHRNet(c, 17, pth, resolution=res,
+                        multiperson=detector is None,
+                        yolo_model_def='yolov3', yolo_weights_path=weights,
+                        dtype=dtype, return_heatmaps=True,
+                        return_bounding_boxes=True, mesh=mesh,
+                        device=None if mesh is not None else 'cuda')
+    if detector is not None:
+        model.multiperson, model.detector = True, detector
+    return model
+
+
+def _per_frame(out1, out8):
+    """(heatmaps, boxes, keypoints) of the single frame, then of each of
+    the 8 frames."""
+    return [tuple(out1)] + list(zip(*out8))
+
+
+def _compare_facades(label, got, want, exact):
+    """``got`` against ``want`` frame by frame: bit for bit, or boxes and
+    people equal and heatmaps within phase 2's bf16 limit of their max.
+    Returns the largest heatmap error."""
+    worst = 0.0
+    for i, ((hm, bx, pts), (rhm, rbx, rpts)) in enumerate(zip(got, want)):
+        if exact:
+            if not (np.array_equal(hm, rhm) and np.array_equal(bx, rbx)
+                    and np.array_equal(pts, rpts)):
+                raise AssertionError(f'{label}: frame {i} differs from the '
+                                     f'meshless facade')
+            continue
+        if not np.array_equal(bx, rbx) or pts.shape != rpts.shape:
+            raise AssertionError(f'{label}: frame {i} boxes or people differ'
+                                 f' from the meshless facade')
+        if hm.size:
+            err = float(np.abs(hm - rhm).max() / np.abs(rhm).max())
+            worst = max(worst, err)
+            if not err <= TOL[torch.bfloat16]:
+                raise AssertionError(f'{label}: frame {i} heatmaps {err:.3e} '
+                                     f'of max from the meshless facade '
+                                     f'(limit {TOL[torch.bfloat16]:.3e})')
+    return worst
+
+
+def run_mesh_facade(dev, path, pth, weights, counters, card):
+    """Phase 10's facade on one path: meshless, ``make_mesh(1)`` and two
+    replicas on the one card. Returns the record and the launches of each
+    mesh run."""
+    from simple_hrnet_tpu_torch.parallel import Mesh, make_mesh
+
+    name, c, res, dtype, batches, chain = path[:6]
+    frames = smooth_frames(8)
+    t0 = time.perf_counter()
+    base = _par_facade(path, pth, weights, None)
+    want = _per_frame(base.predict(frames[0]), base.predict(frames))
+    per_pose = {chain: 8, 'fuse_up': 8}
+    rec, runs = {'meshless_s': time.perf_counter() - t0}, {}
+    for label, mesh in (('mesh1', make_mesh(1)), ('mesh2', Mesh([dev, dev]))):
+        tag = f'phase 10 [{name} {label}]'
+        t0 = time.perf_counter()
+        model = _par_facade(path, pth, weights, mesh, base.detector)
+        shared = all(m is model.model for m in model._models)
+        seen = []
+        hook = model.model.register_forward_pre_hook(
+            lambda _m, args: seen.append(args[0].shape[0]))
+        for k in counters.values():
+            k.launches = 0
+        out1 = model.predict(frames[0])
+        torch.cuda.synchronize()
+        l1 = {k: f.launches for k, f in counters.items()}
+        n1 = len(seen)
+        out8 = model.predict(frames)
+        torch.cuda.synchronize()
+        l8 = {k: f.launches - l1[k] for k, f in counters.items()}
+        hook.remove()
+        if not set(seen) <= set(batches):
+            raise AssertionError(f'{tag}: pose batches {sorted(set(seen))}; '
+                                 f'phase 2 checked {batches}')
+        total = {k: l1[k] + l8[k] for k in counters}
+        wanted = {k: per_pose.get(k, 0) * len(seen) for k in counters
+                  if k != 'nms'}
+        if {k: v for k, v in total.items() if k != 'nms'} != wanted or \
+                not total['nms']:
+            raise AssertionError(f'{tag}: launches {total} over {len(seen)} '
+                                 f'pose forwards; want {wanted} and K1')
+        err = _compare_facades(tag, _per_frame(out1, out8), want,
+                               exact=label == 'mesh1')
+        r = {'replicas': mesh.size, 'shared_model': shared,
+             'pose_batches': seen, 'forwards_single': n1,
+             'launches_single': l1, 'launches_stack8': l8,
+             'launches_per_replica_stack8': {
+                 k: v / mesh.size for k, v in l8.items()},
+             'heatmap_err': err}
+        timing = ''
+        reps, profiled = PAR_TIMING[name][label]
+        if reps:
+            model.return_heatmaps = model.return_bounding_boxes = False
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                model.predict(frames)
+            host_ms = (time.perf_counter() - t1) / reps * 1e3
+            r.update(host_ms_stack8=host_ms, timed_reps=reps)
+            timing = (f'; predict(8 frames) host {host_ms:.1f} ms (mean of '
+                      f'{reps})')
+        if profiled:
+            busy, _, port = device_profile(lambda: model.predict(frames))
+            idle = max(0.0, 1.0 - busy / host_ms)
+            r.update(device_busy_ms=busy, idle_share=idle, port_kernels=port)
+            timing += (f', device busy {busy:.2f} ms, idle share '
+                       f'{100 * idle:.1f}%')
+        r['seconds'] = time.perf_counter() - t0
+        runs[f'{name}_{label}'] = total
+        print(f'{tag} [{card}]: predict 1 and 8 frames '
+              + ('bit for bit the meshless facade' if label == 'mesh1' else
+                 f'boxes and people equal, heatmaps within {err:.3e} of max')
+              + f'; pose batches {seen}; launches 1 frame {l1}, 8 frames '
+              f'{l8} ({mesh.size} replicas){timing}; {r["seconds"]:.1f} s',
+              flush=True)
+        if label == 'mesh2' and name == PAR_PATHS[0][0]:
+            model.return_heatmaps = model.return_bounding_boxes = True
+            stream_frames = list(smooth_frames(PAR_STREAM_FRAMES, seed=7))
+            out, srec = drive_stream(model, iter(stream_frames), PAR_STREAM,
+                                     counters, per_pose=per_pose,
+                                     batches=batches)
+            check_people(f'{tag} stream', out, PAR_STREAM_FRAMES)
+            # each replica detects 2 of a launch's 4 frames: cuDNN may pick
+            # other algorithms at that batch, so boxes are compared, not
+            # required equal
+            ref = list(base.predict_stream(iter(stream_frames), **PAR_STREAM))
+            same = sum(np.array_equal(a[1], b[1]) for a, b in zip(out, ref))
+            srec['frames_with_equal_boxes'] = int(same)
+            r['stream'] = srec
+            runs[f'{name}_{label}_stream'] = srec['launches']
+            print(f'{tag}: predict_stream {PAR_STREAM} over '
+                  f'{PAR_STREAM_FRAMES} frames, dispatch guarded '
+                  f'({srec["guarded_calls"]}): launches {srec["launches"]}, '
+                  f'pose batches {sorted(set(srec["pose_batches"]))}; boxes '
+                  f'equal to the meshless stream on {same} of '
+                  f'{PAR_STREAM_FRAMES} frames', flush=True)
+        rec[label] = r
+        del model
+    del base
+    torch.cuda.empty_cache()
+    return rec, runs
+
+
+def write_memory_mpii(root, seed=13):
+    """Seeded ``annot/{train,valid}.json`` under ``root`` (32 and 16
+    records over 480x640 images ``im<k>.jpg``, a few joints invisible,
+    head boxes on every record)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, 'annot'), exist_ok=True)
+    for version, n, first in (('train', 32, 1), ('valid', 16, 101)):
+        annots = []
+        for k in range(first, first + n):
+            cx, cy = rng.uniform(200, 440), rng.uniform(150, 330)
+            s = rng.uniform(0.9, 1.6)
+            joints = np.stack([cx + rng.uniform(-80, 80, 16),
+                               cy + rng.uniform(-140, 140, 16)], 1)
+            vis = (rng.uniform(0, 1, 16) > 0.1).astype(int)
+            annots.append({'image': f'im{k}.jpg', 'center': [cx, cy],
+                           'scale': s, 'joints': joints.tolist(),
+                           'joints_vis': vis.tolist(),
+                           'headbox': [cx - 30, cy - 180, cx + 30,
+                                       cy - 110]})
+        with open(os.path.join(root, 'annot', f'{version}.json'), 'w') as f:
+            json.dump(annots, f)
+
+
+def memory_mpii(**kw):
+    """The port's ``MPIIDataset`` at the ``train_mpii`` resolution over
+    seeded in-memory images (``MemoryImages``)."""
+    from simple_hrnet_tpu_torch.data.mpii import MPIIDataset
+
+    class MemoryMPII(MemoryImages, MPIIDataset):
+        pass
+
+    return MemoryMPII(image_width=MPII_RES[1], image_height=MPII_RES[0],
+                      **kw)
+
+
+def run_mpii_mesh(dev, tmp, card, root, mesh):
+    """Phase 10's ``MPIITrain`` bf16 epoch under the one-rank mesh, then
+    its step timed and profiled."""
+    from simple_hrnet_tpu_torch.train.trainer import MPIITrain
+
+    out = {}
+    t0 = time.perf_counter()
+    trainer = MPIITrain(
+        exp_name='phase10', epochs=1, batch_size=MPII_BATCH, num_workers=4,
+        ds_train=memory_mpii(root_path=root, data_version='train',
+                             is_train=True),
+        ds_val=memory_mpii(root_path=root, data_version='valid',
+                           is_train=False),
+        lr=1e-3, optimizer='Adam', log_path=os.path.join(tmp, 'mpii_logs'),
+        use_tensorboard=False, model_c=MPII_WIDTH, model_nof_joints=16,
+        flip_test_images=True, model_name='HRNet', seed=1,
+        dtype='bfloat16', mesh=mesh)
+    trainer.run()
+    torch.cuda.synchronize()
+    out['epoch_s'] = time.perf_counter() - t0
+    for k in ('mean_loss_train', 'mean_loss_val', 'mean_acc_val',
+              'mean_mAP_val'):
+        out[k] = float(getattr(trainer, k))
+    out['pckh_val'] = {k: float(v) for k, v in trainer.val_accs.items()}
+    if not (np.isfinite(out['mean_loss_train'])
+            and np.isfinite(out['mean_loss_val'])
+            and 0.0 <= out['mean_mAP_val'] <= 1.0):
+        raise AssertionError(f'phase 10 MPIITrain: {out}')
+    if trainer.len_dl_train != 2 or not os.path.exists(os.path.join(
+            trainer.log_path, 'params_best_mAP.npz')):
+        raise AssertionError('phase 10 MPIITrain: not 2 steps and a '
+                             'checkpoint')
+    it = iter(trainer.dl_train)
+    image, target, tw, _ = next(it)
+    it.close()
+    batch = {'image': image, 'target': target, 'target_weight': tw}
+    step_fn = trainer._train_step
+    for _ in range(2):
+        step_fn(batch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    step_ms = float(np.median(secs)) * 1e3
+    out['step_ms'] = {'median': step_ms, 'min': min(secs) * 1e3,
+                      'max': max(secs) * 1e3}
+    out['images_per_s'] = MPII_BATCH / step_ms * 1e3
+    out['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy, rows, port = device_profile(lambda: step_fn(batch))
+    out['device_busy_ms'] = busy
+    out['idle_share'] = max(0.0, 1.0 - busy / step_ms)
+    out['top_kernels'] = [[round(ms, 3), n, key[:80]]
+                          for ms, n, key in rows[:8]]
+    if port:
+        raise AssertionError(f'phase 10: port kernels in a train step: '
+                             f'{port}')
+    print(f'phase 10 [{card}]: MPIITrain HRNet-W{MPII_WIDTH}-'
+          f'{MPII_RES[0]}x{MPII_RES[1]} bf16 batch {MPII_BATCH} Adam under '
+          f'a one-rank NCCL mesh: 2 steps + validation (16, flip test, '
+          f'PCKh) + checkpoint in {out["epoch_s"]:.1f} s: train loss '
+          f'{out["mean_loss_train"]:.5f}, val loss {out["mean_loss_val"]:.5f}'
+          f', val PCKh {out["mean_mAP_val"]:.4f}; step median {step_ms:.2f} '
+          f'ms (min {out["step_ms"]["min"]:.2f}, max '
+          f'{out["step_ms"]["max"]:.2f}) over {TIMED_STEPS}, '
+          f'{out["images_per_s"]:.1f} images/s, peak memory '
+          f'{out["peak_gib"]:.2f} GiB; device busy {busy:.2f} ms, idle '
+          f'share {out["idle_share"]:.3f}', flush=True)
+    return out
+
+
+def dp_child(addr, rank, inputs, out_path):
+    """One process of phase 10's two-process step (``--dp-child``): joins
+    the gloo group on the card, runs the f32 eval and train steps on its
+    rows of the global batch, and (rank 0) saves the gathered results."""
+    from simple_hrnet_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize(addr, 2, int(rank), backend='gloo',
+                           device='cuda')
+    try:
+        mesh = make_mesh()
+        data = torch.load(inputs, weights_only=False)
+        local = distributed.global_batch(data['batch'], mesh)
+        run = _train_f32_run(mesh.devices[0], data['sd'], local, data['cfg'],
+                             mesh=mesh)
+        if int(rank) == 0:
+            torch.save(run, out_path)
+        torch.distributed.barrier()
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def run_two_process_step(dev, tmp, card, root):
+    """The two-process f32 step over gloo on the card against the
+    one-process step on the whole batch, with phase 9's controls."""
+    import socket
+
+    _, raw_batch, cfg, sd = _train_f32_inputs(root, rows=range(DP_ROWS))
+    inputs = os.path.join(tmp, 'dp_inputs.pt')
+    result = os.path.join(tmp, 'dp_result.pt')
+    torch.save({'sd': sd, 'batch': raw_batch, 'cfg': cfg}, inputs)
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    addr = f'127.0.0.1:{s.getsockname()[1]}'
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--dp-child', addr,
+         str(rank), inputs, result], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    secs = time.perf_counter() - t0
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f'phase 10 two-process step failed:\n{o}')
+    two = torch.load(result, weights_only=False)
+    one = _train_f32_run(dev, sd, raw_batch, cfg)
+    err = _train_errors(two, one, sd)
+    bad = {k: v for k, v in err.items() if not v <= TRAIN_LIMITS[k]}
+    if bad:
+        raise AssertionError(f'phase 10: two processes vs one outside the '
+                             f'limits {bad} (limits {TRAIN_LIMITS})')
+    controls = _train_controls(dev, sd, raw_batch, cfg, two)
+    print(f'phase 10 [{card}]: W48-384x288 f32 train + flip-test eval step, '
+          f'two processes over gloo on the card ({DP_ROWS // 2} rows each, '
+          f'{secs:.1f} s) vs one process on the batch of {DP_ROWS}: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in err.items())
+          + f'; controls outside: {controls}', flush=True)
+    return {'errors': err, 'limits': TRAIN_LIMITS, 'controls': controls,
+            'seconds': secs}
+
+
+def run_train_mesh(dev, tmp, card, counters):
+    """Phase 10's training: the one-rank NCCL mesh (the MPII epoch and the
+    f32 steps against the meshless ones), then the two-process step."""
+    import socket
+
+    from simple_hrnet_tpu_torch.parallel import distributed, make_mesh
+
+    coco_root = os.path.join(tmp, 'coco10')
+    write_memory_coco(coco_root)
+    mpii_root = os.path.join(tmp, 'mpii')
+    write_memory_mpii(mpii_root)
+    for k in counters.values():
+        k.launches = 0
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    distributed.initialize(f'127.0.0.1:{port}', 1, 0, backend='nccl',
+                           device='cuda')
+    try:
+        mesh = make_mesh()
+        if mesh.group is None or mesh.size != 1:
+            raise AssertionError(f'phase 10: one-rank mesh {mesh}')
+        out = {'mpii': run_mpii_mesh(dev, tmp, card, mpii_root, mesh)}
+        _, raw_batch, cfg, sd = _train_f32_inputs(coco_root)
+        meshed = _train_f32_run(dev, sd, raw_batch, cfg, mesh=mesh)
+    finally:
+        distributed.shutdown()
+    plain = _train_f32_run(dev, sd, raw_batch, cfg)
+    err = _train_errors(meshed, plain, sd)
+    bad = {k: v for k, v in err.items() if not v <= TRAIN_LIMITS[k]}
+    if bad:
+        raise AssertionError(f'phase 10: one-rank mesh vs meshless step '
+                             f'outside the limits {bad}')
+    out['one_rank_f32'] = err
+    print(f'phase 10 [{card}]: W48-384x288 f32 train + flip-test eval step '
+          f'at batch 2 under the one-rank mesh (DDP, BatchNorm2d) vs '
+          f'meshless: ' + ', '.join(f'{k} {v:.3e}' for k, v in err.items())
+          + f' (limits {TRAIN_LIMITS})', flush=True)
+    out['two_process'] = run_two_process_step(dev, tmp, card, coco_root)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f'phase 10: port kernels launched in training: '
+                             f'{launches}')
+    out['launches'] = launches
+    return out
+
+
+def _numpy_warp(src, m_inv, oh, ow):
+    """Bilinear dst -> src warp with zeros outside, in f64 (the host
+    library's arithmetic, data/native.py)."""
+    ys, xs = np.mgrid[0:oh, 0:ow].astype(np.float64)
+    sx = m_inv[0, 0] * xs + m_inv[0, 1] * ys + m_inv[0, 2]
+    sy = m_inv[1, 0] * xs + m_inv[1, 1] * ys + m_inv[1, 2]
+    x0, y0 = np.floor(sx).astype(int), np.floor(sy).astype(int)
+    fx, fy = sx - x0, sy - y0
+    h, w = src.shape[:2]
+    out = np.zeros((oh, ow, 3))
+    for dy, dx, wt in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                       (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+        yy, xx = y0 + dy, x0 + dx
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        out[ok] += wt[ok][:, None] * src[yy[ok], xx[ok]]
+    return out
+
+
+NATIVE_DECODE_TOL = 1e-4  # of the normalized values' range (f32 weights)
+
+
+def check_native_decode(jpeg: bytes):
+    """The fused ``decode_warp_normalize`` on ``jpeg`` against the library's
+    plain decode, warped and normalized in numpy. Returns the largest
+    difference; fails above ``NATIVE_DECODE_TOL``."""
+    from simple_hrnet_tpu_torch.data import native
+    from simple_hrnet_tpu_torch.ops.image import INV255_STD, MEAN255
+
+    rgb = native.decode_jpeg_rgb(jpeg).astype(np.float64)
+    m = np.asarray([[0.8, 0.1, 4.5], [-0.1, 0.9, 2.0]], np.float32)
+    got = native.decode_warp_normalize(jpeg, m, 96, 72, MEAN255, INV255_STD)
+    want = (_numpy_warp(rgb, m.astype(np.float64), 96, 72) - MEAN255) \
+        * INV255_STD
+    err = float(np.abs(got - want).max())
+    if not err <= NATIVE_DECODE_TOL:
+        raise AssertionError(f'native decode_warp_normalize {err:.3e} from '
+                             f'the numpy warp (limit {NATIVE_DECODE_TOL})')
+    return err
+
+
+def run_host_libraries(card, weights):
+    """Phase 10's host libraries: ``nms_numpy``'s library route against
+    its numpy route on YOLOv3 detections, and the JPEG library where
+    ``jpeglib.h`` is installed."""
+    from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
+    from simple_hrnet_tpu_torch.ops.nms import nms_numpy
+
+    det = YOLOv3(model_def='yolov3', weights_path=weights, device='cuda')
+    rows, valid = det.detect_padded(torch.from_numpy(
+        smooth_frames(8)[..., ::-1].copy()).cuda())
+    rows, valid = rows.cpu().numpy(), valid.cpu().numpy()
+    sets = [rows[i][valid[i]][:, :5] for i in range(len(rows))]
+    sets.append(np.concatenate(sets))  # every frame's boxes in one set
+    kept = []
+    for dets in sets:
+        for thr in (0.3, 0.5):
+            lib, ref = nms_numpy(dets, thr), nms_numpy(dets, thr,
+                                                       native=False)
+            if lib != ref:
+                raise AssertionError(f'phase 10: nms_numpy library route '
+                                     f'{lib} != numpy route {ref}')
+            kept.append(len(lib))
+    rec = {'nms_sets': len(sets), 'boxes': int(sum(len(d) for d in sets)),
+           'kept': kept}
+    header = '/usr/include/jpeglib.h'
+    if os.path.exists(header):
+        encoded = None
+        try:
+            import cv2
+            img = np.repeat(np.repeat(np.random.default_rng(3).integers(
+                0, 256, (12, 16, 3), dtype=np.uint8), 8, 0), 8, 1)
+            encoded = cv2.imencode('.jpg', img)[1].tobytes()
+        except ImportError:
+            pass
+        if encoded is None:
+            rec['native_decode'] = 'built; no JPEG encoder here for an input'
+        else:
+            rec['native_decode_err'] = check_native_decode(encoded)
+    else:
+        rec['native_decode'] = f'not built here: {header} is not installed'
+    print(f'phase 10 [{card}]: nms_numpy host library == numpy route on '
+          f'{rec["boxes"]} YOLOv3 boxes in {rec["nms_sets"]} sets (kept '
+          f'{kept}); JPEG library: '
+          + (f'decode_warp_normalize within {rec["native_decode_err"]:.3e} '
+             f'of the numpy warp' if 'native_decode_err' in rec
+             else rec['native_decode']), flush=True)
+    return rec
+
+
+def run_parallel_phase(dev, tmp, pths, weights, counters):
+    """Phase 10 (see the module docstring). Returns its record and the
+    launches of each facade run on a mesh."""
+    t0 = time.perf_counter()
+    card = card_line()
+    summary, runs = {'card': card}, {}
+    for path in PAR_PATHS:
+        summary[path[0]], r = run_mesh_facade(dev, path, pths[path[1]],
+                                              weights, counters, card)
+        runs.update(r)
+    summary['train'] = run_train_mesh(dev, tmp, card, counters)
+    summary['host_libraries'] = run_host_libraries(card, weights)
+    summary['seconds'] = time.perf_counter() - t0
+    print(f'phase 10: {summary["seconds"]:.1f} s', flush=True)
+    return runs, summary
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -2605,6 +3159,10 @@ def main():
                     help='stop after the kernel checks (phase 2)')
     ap.add_argument('--train-only', action='store_true',
                     help='run phase 9 only (it builds no kernel)')
+    ap.add_argument('--parallel-only', action='store_true',
+                    help='build the kernels, then run phase 10 only')
+    ap.add_argument('--dp-child', nargs=4, help=argparse.SUPPRESS,
+                    metavar=('ADDR', 'RANK', 'INPUTS', 'OUT'))
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2616,6 +3174,8 @@ def main():
     # every comparison below is in true f32 where f32 is asked for
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dp_child:
+        return dp_child(*args.dp_child)
 
     if args.train_only:
         # phase 9 launches no port kernel, so it needs none built
@@ -2636,6 +3196,15 @@ def main():
         print(f'--- nvcc {name} ---\n{log.strip()}')
 
     counters = kernel_counters()
+
+    if args.parallel_only:
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+            pths, weights = write_weights(tmp)
+            runs, summary = run_parallel_phase(dev, tmp, pths, weights,
+                                               counters)
+        print(json.dumps({'parallel': summary, 'launches': runs}))
+        print(card_line())
+        return 0
 
     rec = {}
     check_nms(dev, rec)
@@ -2675,6 +3244,9 @@ def main():
                 tmp, pths, weights, counters, summary)
             stream_launches.update(engine_launches)
             summary['train'] = run_train_phase(dev, tmp, counters)
+            mesh_launches, summary['parallel'] = run_parallel_phase(
+                dev, tmp, pths, weights, counters)
+            stream_launches.update(mesh_launches)
             for run, launches in stream_launches.items():
                 for k in counters:
                     totals[k] += launches[k]

@@ -38,14 +38,28 @@ nothing back, so launches queue up while the host decodes earlier results
 ``enable_tensorrt=True`` (or a ``.torchpose`` checkpoint path) serves the
 pose model from an engine of ``utils/export.py`` instead (the JAX
 facade's ``.jaxpose`` branch): it replaces the pose model in every runner,
-each batch padded to the engine batch and chunked. ``mesh`` (multi-device
-inference) is the one JAX facade option not ported; it raises
-``NotImplementedError``.
+each batch padded to the engine batch and chunked.
+
+``mesh`` (``parallel/mesh.py``) serves from one process over the mesh's
+devices, the reference's ``DataParallel`` (SimpleHRNet.py:123-135) and
+the JAX facade's sharding over ``'data'``: one pose model (or one loaded
+engine) and, for the stream runners, one detector on each device, shared
+where a device repeats. A crop batch is cut along dim 0 into one part a
+device, each part cropped, posed and decoded there without a host sync,
+and the outputs are gathered on the facade's device (the mesh's first);
+the pose buckets are multiples of the mesh's size (JAX ``_buckets``). The
+fused-frame runners shard whole frames (detect, crops, pose, decode) when
+their frame count divides by the size, and run on the facade's device
+otherwise (the one-frame view behind ``_fused_frame``). HRNet's kernels
+stay on under a mesh: the JAX facade turns its fused kernels off there
+because its batch packing would concatenate across the sharded axis, and
+the port does not pack.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -60,6 +74,8 @@ from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import decode as D
 from simple_hrnet_tpu_torch.ops import image as I
+from simple_hrnet_tpu_torch.parallel.mesh import (module_to, move_attrs,
+                                                  replicate)
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
 from simple_hrnet_tpu_torch.utils.device import (host_to_device,
                                                  resolve_device, true_f32)
@@ -69,10 +85,14 @@ HRNET_NAMES = ('HRNet', 'hrnet')
 POSERESNET_NAMES = ('PoseResNet', 'poseresnet', 'ResNet', 'resnet')
 
 
-def _buckets(n: int, max_batch: int) -> int:
-    """Next power-of-two bucket of ``n``, capped at ``max_batch``."""
-    cap = max(max_batch, 1)
-    b = 1
+def _buckets(n: int, max_batch: int, multiple: int = 1) -> int:
+    """Next power-of-two bucket of ``n``, capped at ``max_batch``;
+    ``multiple`` (the mesh's size) keeps it divisible: the start is
+    ``multiple`` and the cap is rounded down to a multiple of it (JAX
+    ``_buckets``)."""
+    b = max(1, multiple)
+    cap = max(multiple, (max_batch // multiple) * multiple) \
+        if multiple > 1 else max(max_batch, 1)
     while b < n and b < cap:
         b *= 2
     return min(b, cap)
@@ -188,7 +208,9 @@ class SimpleHRNet:
     on the int8 chain kernel. ``calibration_images`` (HWC RGB frames)
     calibrate the activation scales instead of smooth synthetic frames;
     ``int8_exclude`` (dotted path prefixes such as ('stage4',)) keeps
-    those convs bf16. Both raise ``ValueError`` without int8. HRNet's
+    those convs bf16. Both raise ``ValueError`` without int8. ``mesh``
+    serves over the mesh's devices (module docstring); ``device``, when
+    given, must be its first. HRNet's
     branch-0 chain and high-res fusion run through the CUDA kernels on the
     card; ``use_fused_kernels=False`` runs HRNet's plain graph instead (the
     JAX facade's, api.py:310-314: every stage module as plain blocks and
@@ -202,8 +224,7 @@ class SimpleHRNet:
     simple_hrnet_tpu_torch.cli.export``): its resolution must equal
     ``resolution``, ``dtype`` then sets the detector's type only,
     ``use_fused_kernels`` is not looked at, and ``int8_exclude`` or a JAX
-    ``.jaxpose`` engine raise ``ValueError``. ``mesh`` raises
-    ``NotImplementedError``.
+    ``.jaxpose`` engine raise ``ValueError``.
     """
 
     def __init__(self,
@@ -244,9 +265,15 @@ class SimpleHRNet:
         if multiperson and yolo_version not in ('v3', 'v5'):
             raise ValueError('Unsupported YOLO version.')
         if mesh is not None:
-            raise NotImplementedError('mesh (multi-device inference) is not '
-                                      'ported to the PyTorch/CUDA package '
-                                      'yet (see ROADMAP.md)')
+            if mesh.process_count > 1:
+                raise ValueError(
+                    'SimpleHRNet(mesh=...) drives the mesh from one process; '
+                    'this mesh spans several processes (a training mesh)')
+            if device is not None and \
+                    resolve_device(device) != mesh.devices[0]:
+                raise ValueError(f'device {device!r} is not the mesh\'s '
+                                 f'first device {mesh.devices[0]}')
+            device = mesh.devices[0]
         if dtype not in (None, 'bfloat16', 'bf16', 'int8'):
             raise ValueError(f'Unsupported dtype {dtype!r}')
         if interpolation not in ('cubic', None, 2, 'linear', 'bilinear', 1,
@@ -263,6 +290,9 @@ class SimpleHRNet:
         self.return_bounding_boxes = return_bounding_boxes
         self.max_batch_size = max_batch_size
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # pose buckets divisible by the mesh (JAX api.py:548, 853-856)
+        self._mult = mesh.size if mesh is not None else 1
         self.quantize_int8 = dtype == 'int8'
         self.dtype = torch.bfloat16 if dtype in ('bfloat16', 'bf16', 'int8') \
             else torch.float32
@@ -287,6 +317,13 @@ class SimpleHRNet:
             self.model = self.engine.apply
         else:
             self.model = self._build_model(use_fused_kernels)
+        # one pose model a mesh device (a repeated device shares it)
+        self._models = [self.model]
+        if mesh is not None:
+            self._models = ([self._engine_on(d).apply for d in mesh.devices]
+                            if self.engine is not None
+                            else replicate(self.model, mesh))
+        self._detectors: Dict[tuple, object] = {}
 
         det_dtype = 'int8' if self.quantize_int8 else \
             None if self.dtype == torch.float32 else 'bfloat16'
@@ -333,6 +370,64 @@ class SimpleHRNet:
             if self.int8_exclude:
                 amax = Q.filter_amax(model, amax, self.int8_exclude)
         return prepare(model, self.dtype, amax=amax)
+
+    def _engine_on(self, dev: torch.device):
+        """The engine on mesh device ``dev``: the facade's own on its device,
+        else the same file loaded there (weights and constants moved)."""
+        if dev == self.device:
+            return self.engine
+        from simple_hrnet_tpu_torch.utils.export import Engine
+        eng = Engine(self.checkpoint_path, device=dev)
+        eng.module.to(dev)
+        move_attrs(eng.module, dev)
+        return eng
+
+    def _detectors_on_mesh(self) -> list:
+        """``self.detector`` on each mesh device, copied (its network and
+        tensors moved) to a device other than the facade's; cached per
+        detector object."""
+        out = []
+        for d in self.mesh.devices:
+            key = (id(self.detector), d)
+            if key not in self._detectors:
+                if d == self.device:
+                    det = self.detector
+                else:
+                    det = copy.copy(self.detector)
+                    for k, v in vars(det).items():
+                        if isinstance(v, nn.Module):
+                            setattr(det, k, module_to(v, d))
+                        elif isinstance(v, torch.Tensor):
+                            setattr(det, k, v.to(d))
+                    det.device = d
+                self._detectors[key] = det
+            out.append(self._detectors[key])
+        return out
+
+    def _sharded(self, n: int) -> bool:
+        """Whether a batch of ``n`` rows runs split over the mesh."""
+        return self.mesh is not None and self.mesh.local_size > 1 \
+            and n % self.mesh.local_size == 0
+
+    def _on_mesh(self, fn: Callable, shard_args, repl_args=()):
+        """``fn(i, *shards, *replicated)`` on each mesh device i: the
+        ``shard_args`` cut along dim 0 into one equal part a device and
+        the ``repl_args`` copied to it, all ``non_blocking`` (no host
+        sync); each output tensor's parts are concatenated on the facade's
+        device, in device order."""
+        devs = self.mesh.devices
+        k = shard_args[0].shape[0] // len(devs)
+        copies: Dict[torch.device, list] = {}
+        outs = []
+        for i, d in enumerate(devs):
+            if d not in copies:
+                copies[d] = [a.to(d, non_blocking=True) for a in repl_args]
+            parts = [a[i * k:(i + 1) * k].to(d, non_blocking=True)
+                     for a in shard_args]
+            outs.append(fn(i, *parts, *copies[d]))
+        return tuple(torch.cat([o[j].to(self.device, non_blocking=True)
+                                for o in outs])
+                     for j in range(len(outs[0])))
 
     @torch.no_grad()
     def _calibrate_int8(self, model: nn.Module):
@@ -396,13 +491,19 @@ class SimpleHRNet:
         boxes = host_to_device(np.tile(np.asarray(
             [0.0, 0.0, in_hw[1], in_hw[0]], np.float32), (batch, 1)),
             self.device)
+        models = self._models
+
+        def tail(i, frames, bxs):
+            x = frames.float()
+            if resize is not None:
+                x = resize(x, res_hw)
+            return _pose_tail(models[i], x, bxs)
 
         @torch.no_grad()
         def run(frames_rgb: torch.Tensor):
-            x = frames_rgb.float()
-            if resize is not None:
-                x = resize(x, res_hw)
-            return _pose_tail(model, x, boxes)
+            if self._sharded(batch):
+                return self._on_mesh(tail, (frames_rgb, boxes))
+            return tail(0, frames_rgb, boxes)
 
         self._single_runs[key] = run
         return run
@@ -420,7 +521,13 @@ class SimpleHRNet:
         if key in self._gather_runs:
             return self._gather_runs[key]
         res_h, res_w = self.resolution
-        model = self.model
+        models = self._models
+
+        def tail(i, fi, padded, boxes, frames_rgb):
+            crops = I.crop_resize_pil(
+                frames_rgb, fi, padded, (res_h, res_w),
+                valid_boxes=None if clamp_hw is not None else boxes)
+            return _pose_tail(models[i], crops, padded)
 
         @torch.no_grad()
         def run(frames_rgb: torch.Tensor, rows: torch.Tensor,
@@ -435,10 +542,11 @@ class SimpleHRNet:
             fi = sel // d
             boxes = torch.round(rows.reshape(-1, rows.shape[-1])[sel][:, :4])
             padded = I.pad_to_aspect(boxes, res_h / res_w, clamp_hw=clamp_hw)
-            crops = I.crop_resize_pil(
-                frames_rgb, fi, padded, (res_h, res_w),
-                valid_boxes=None if clamp_hw is not None else boxes)
-            hm, pts = _pose_tail(model, crops, padded)
+            if self._sharded(bucket):
+                hm, pts = self._on_mesh(tail, (fi, padded, boxes),
+                                        (frames_rgb,))
+            else:
+                hm, pts = tail(0, fi, padded, boxes, frames_rgb)
             return total, counts, hm, padded, pts
 
         self._gather_runs[key] = run
@@ -485,25 +593,34 @@ class SimpleHRNet:
         if key in self._fused_runs:
             return self._fused_runs[key]
         self._check_people_cap(max_people)
-        detector, model = self.detector, self.model
+        sharded = self._sharded(n_frames)
+        detectors = self._detectors_on_mesh() if sharded \
+            else [self.detector]
+        models = self._models
         res_h, res_w = self.resolution
-        shp = (n_frames, max_people)
 
-        @torch.no_grad()
-        def run(frames_rgb: torch.Tensor):
-            rows, valid = detector.detect_padded(frames_rgb)
+        def frames_run(i, frames_rgb):
+            nf = frames_rgb.shape[0]
+            shp = (nf, max_people)
+            rows, valid = detectors[i].detect_padded(frames_rgb)
             rows = rows[:, :max_people]
             valid = valid[:, :max_people]
             boxes = torch.round(rows[..., :4]).reshape(-1, 4)
             padded = I.pad_to_aspect(boxes, res_h / res_w)
-            fi = torch.arange(n_frames * max_people,
+            fi = torch.arange(nf * max_people,
                               device=frames_rgb.device) // max_people
             crops = I.crop_resize_pil(frames_rgb, fi, padded, (res_h, res_w),
                                       valid_boxes=boxes)
-            hm, pts = _pose_tail(model, crops, padded)
+            hm, pts = _pose_tail(models[i], crops, padded)
             return (valid, padded.reshape(*shp, 4),
                     hm.reshape(*shp, *hm.shape[1:]),
                     pts.reshape(*shp, *pts.shape[1:]))
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor):
+            if sharded:
+                return self._on_mesh(frames_run, (frames_rgb,))
+            return frames_run(0, frames_rgb)
 
         self._fused_runs[key] = run
         return run
@@ -519,14 +636,21 @@ class SimpleHRNet:
         if key in self._fused_runs:
             return self._fused_runs[key]
         self._check_people_cap(max_people)
-        detector = self.detector
+        sharded = self._sharded(n_frames)
+        detectors = self._detectors_on_mesh() if sharded \
+            else [self.detector]
 
-        @torch.no_grad()
-        def run(frames_rgb: torch.Tensor):
-            rows, valid = detector.detect_padded(frames_rgb)
+        def rows_run(i, frames_rgb):
+            rows, valid = detectors[i].detect_padded(frames_rgb)
             rows = rows[:, :max_people]
             valid = valid[:, :max_people]
             return rows, valid, valid.sum(dim=1)
+
+        @torch.no_grad()
+        def run(frames_rgb: torch.Tensor):
+            if sharded:
+                return self._on_mesh(rows_run, (frames_rgb,))
+            return rows_run(0, frames_rgb)
 
         self._fused_runs[key] = run
         return run
@@ -540,11 +664,18 @@ class SimpleHRNet:
         key = (in_hw, 0, n_frames)
         if key in self._fused_runs:
             return self._fused_runs[key]
-        detector = self.detector
+        sharded = self._sharded(n_frames)
+        detectors = self._detectors_on_mesh() if sharded \
+            else [self.detector]
+
+        def counts_run(i, frames_rgb):
+            return (detectors[i].detect_padded(frames_rgb)[1].sum(dim=1),)
 
         @torch.no_grad()
         def run(frames_rgb: torch.Tensor):
-            return detector.detect_padded(frames_rgb)[1].sum(dim=1)
+            if sharded:
+                return self._on_mesh(counts_run, (frames_rgb,))[0]
+            return counts_run(0, frames_rgb)[0]
 
         self._fused_runs[key] = run
         return run
@@ -554,7 +685,8 @@ class SimpleHRNet:
         """All detections through the gather pipeline. The first window
         uses an optimistic bucket (2 people per frame) and returns the total
         count; follow-up windows cover the rest (``_gathered``)."""
-        bucket0 = _buckets(2 * frames_rgb.shape[0], self.max_batch_size)
+        bucket0 = _buckets(2 * frames_rgb.shape[0], self.max_batch_size,
+                           self._mult)
         first = self._gather_crop(bucket0, clamp_hw)(frames_rgb, rows, valid,
                                                      0)
         total = int(first[0])  # first host sync: the first pose batch is done
@@ -573,7 +705,7 @@ class SimpleHRNet:
             start = min(first[0], total)
             parts.append((first[1], start))
         while start < total:
-            b = _buckets(total - start, self.max_batch_size)
+            b = _buckets(total - start, self.max_batch_size, self._mult)
             out = self._gather_crop(b, clamp_hw)(frames_rgb, rows, valid,
                                                  start)
             parts.append((out, min(b, total - start)))
@@ -645,6 +777,14 @@ class SimpleHRNet:
     # ------------------------------------------------------------------
     # stream engines
     # ------------------------------------------------------------------
+
+    def _check_mesh_frames(self, batch_frames: int) -> None:
+        """Under a mesh a chunk's frames must shard evenly (JAX api.py:
+        882-885, 937-941, 1080-1083)."""
+        if self.mesh is not None and batch_frames % self.mesh.size:
+            raise ValueError(
+                f'batch_frames={batch_frames} must divide the mesh '
+                f'({self.mesh.size} devices) so frames shard evenly')
 
     def _pipeline(self, frames, batch_frames: int, prefetch: int,
                   dispatch: Callable, resolve: Callable):
@@ -726,6 +866,8 @@ class SimpleHRNet:
             def resolve(out):
                 return [self._finish_fused(self._host(*out))]
         else:
+            self._check_mesh_frames(batch_frames)
+
             def dispatch(frames_rgb, n_real):
                 return self._fused_frames(frames_rgb.shape[1:3], max_people,
                                           batch_frames)(frames_rgb), n_real
@@ -763,8 +905,10 @@ class SimpleHRNet:
         (the max count over a chunk's frames) and loop until the launch is
         unsaturated or at the cap, so results equal the fixed-slot
         stream's. A re-run takes the frames already on the device."""
-        ctl = _SlotController(cap, slot_window)
         per_frame = batch_frames <= 1
+        if not per_frame:
+            self._check_mesh_frames(batch_frames)
+        ctl = _SlotController(cap, slot_window)
 
         def launch(frames_rgb, slots):
             in_hw = frames_rgb.shape[1:3]
@@ -818,6 +962,7 @@ class SimpleHRNet:
         its wake-up pose launch exactly from the read counts. Padded
         duplicate frames sort after every real frame's people and are
         never consumed."""
+        self._check_mesh_frames(batch_frames)
         # previous window's total people — sizes the next optimistic pose
         # launch; 0 = idle (detect-only until people reappear)
         prior = [2 * batch_frames]
@@ -827,7 +972,7 @@ class SimpleHRNet:
                 frames_rgb.shape[1:3], batch_frames, max_people)(frames_rgb)
             first = None
             if prior[0] > 0:
-                bucket0 = _buckets(prior[0], self.max_batch_size)
+                bucket0 = _buckets(prior[0], self.max_batch_size, self._mult)
                 first = (bucket0, self._gather_crop(bucket0)(
                     frames_rgb, rows, valid, 0))
             return frames_rgb, rows, valid, counts_d, first, n_real
@@ -905,16 +1050,16 @@ class SimpleHRNet:
                     rows, valid, _ = self._detect_rows(
                         (h, w), nf, compact_cap)(frames_rgb)
                     # every power-of-two people bucket a window can need
-                    b = _buckets(1, self.max_batch_size)
+                    b = _buckets(1, self.max_batch_size, self._mult)
                     seen = set()
                     while True:
                         if b not in seen:
                             seen.add(b)
                             self._gather_crop(b)(frames_rgb, rows, valid, 0)
                         if b >= _buckets(compact_cap * nf,
-                                         self.max_batch_size):
+                                         self.max_batch_size, self._mult):
                             break
-                        b = _buckets(b + 1, self.max_batch_size)
+                        b = _buckets(b + 1, self.max_batch_size, self._mult)
             for slots in slot_counts:
                 for nf in stream_batch_frames:
                     if slots == 0:

@@ -5,8 +5,15 @@ Counterpart of ``simple_hrnet_tpu/cli/train_coco.py``, with its flags:
     python -m simple_hrnet_tpu_torch.cli.train_coco -n EXP \\
         --coco_root_path ./datasets/COCO [--device cpu] [--dtype bfloat16]
 
-Training runs on one device, the card unless ``--device cpu``; more than
-one (``--n_devices``) raises, as data parallelism is not ported.
+Training runs on one device, the card unless ``--device cpu``. Data
+parallelism runs one process a card:
+
+    torchrun --nproc_per_node=N -m simple_hrnet_tpu_torch.cli.train_coco \
+        --n_devices N -n EXP ...
+
+Under such a launch the CLI joins the process group and trains over the
+mesh of all processes; ``--n_devices`` above 1 without one raises, naming
+that line.
 """
 
 from __future__ import annotations
@@ -49,12 +56,10 @@ def main(exp_name,
          use_grouped_trunk=False,
          device_targets=False):
     from simple_hrnet_tpu_torch.data.coco import COCODataset
+    from simple_hrnet_tpu_torch.parallel.distributed import cli_mesh
     from simple_hrnet_tpu_torch.train.trainer import COCOTrain
 
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(
-            f'n_devices={n_devices}: data-parallel training is not ported '
-            f'yet (ROADMAP A14); train on one device')
+    mesh = cli_mesh(n_devices, device)
 
     random.seed(seed)
     np.random.seed(seed)
@@ -89,8 +94,8 @@ def main(exp_name,
         use_tensorboard=not disable_tensorboard_log, model_c=model_c,
         model_nof_joints=model_nof_joints,
         model_bn_momentum=model_bn_momentum,
-        flip_test_images=not disable_flip_test_images, seed=seed,
-        dtype=dtype, use_grouped_trunk=use_grouped_trunk,
+        flip_test_images=not disable_flip_test_images, mesh=mesh,
+        seed=seed, dtype=dtype, use_grouped_trunk=use_grouped_trunk,
         device_targets=device_targets, device=device)
     train.run()
     return train
@@ -129,7 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--device', '-d', type=str, default=None,
                         help="'cuda' (the default) or 'cpu'")
     parser.add_argument('--n_devices', type=int, default=None,
-                        help='more than 1 (data parallelism) is not ported')
+                        help='data-parallel devices: more than 1 runs under '
+                             'torchrun --nproc_per_node=N, one process a '
+                             'device')
     parser.add_argument('--use_grouped_trunk', action='store_true',
                         help='the TPU grouped trunk: not ported (raises)')
     parser.add_argument('--dtype', type=str, default=None,
@@ -138,7 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
                              '(f32 master params, bf16 conv compute)')
     parser.add_argument('--use_native_decode', action='store_true',
                         help='fused native JPEG->warp->normalize data '
-                             'loading: not ported (raises)')
+                             'loading (the host library, built with g++ '
+                             'and libjpeg at first use)')
     parser.add_argument('--device_targets', action='store_true',
                         help='run the ImageNet normalize and the gaussian '
                              'targets in the step on the device; the host '

@@ -52,6 +52,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the dynamic shared memory attribute is set per device: a function's
+// attribute lives in the current device's context
+constexpr int MAX_DEVICES = 64;
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -533,14 +537,17 @@ int launch(Args& a, cudaStream_t st) {
   // the dynamic shared memory the kernel has been allowed (once per size
   // above the 48 KB default, so the launch path stays free of API calls
   // that a CUDA graph capture might refuse)
-  static int allowed = 48 * 1024;
+  static int allowed[MAX_DEVICES] = {};
+  int cur = 0;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
   const int bytes = a.L.bytes;
-  if (bytes > allowed) {
+  if (bytes > 48 * 1024 && bytes > allowed[cur]) {
     const cudaError_t e = cudaFuncSetAttribute(
         fuse_up_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
+    allowed[cur] = bytes;
   }
   // one wave of resident blocks, each walking its share of the work items
   int dev = 0, sms = 0, per_sm = 0;

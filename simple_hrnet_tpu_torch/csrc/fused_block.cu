@@ -62,6 +62,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the dynamic shared memory attribute is set per device: a function's
+// attribute lives in the current device's context
+constexpr int MAX_DEVICES = 64;
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -549,13 +553,16 @@ int chain_bf16_c(const bf16* x, const bf16* w, const float* b, bf16* out,
   using T = Tc<C>;
   // the dynamic shared memory the kernel has been allowed, set once so the
   // launch path stays free of attribute calls inside a CUDA graph capture
-  static bool allowed = false;
-  if (!allowed) {
+  static bool allowed[MAX_DEVICES] = {};
+  int cur = 0;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  if (!allowed[cur]) {
     const cudaError_t e = cudaFuncSetAttribute(
         conv3x3_bf16_tc<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::BYTES);
     if (e != cudaSuccess) return (int)e;
-    allowed = true;
+    allowed[cur] = true;
   }
   // one wave of resident blocks, each walking its share of the tiles
   int dev = 0, sms = 0, per_sm = 0;

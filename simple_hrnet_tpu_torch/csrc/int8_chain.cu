@@ -78,6 +78,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the dynamic shared memory attribute is set per device: a function's
+// attribute lives in the current device's context
+constexpr int MAX_DEVICES = 64;
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -561,13 +565,16 @@ __global__ void __launch_bounds__(256)
 template <int KS, int NJ>
 cudaError_t prepare(int* per_sm) {
   using T = Tc<KS, NJ>;
-  static bool allowed = false;
-  if (!allowed) {
+  static bool allowed[MAX_DEVICES] = {};
+  int cur = 0;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur >= MAX_DEVICES)
+    return cudaErrorInvalidDevice;
+  if (!allowed[cur]) {
     const cudaError_t e = cudaFuncSetAttribute(
         int8_conv_tc<KS, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::BYTES);
     if (e != cudaSuccess) return e;
-    allowed = true;
+    allowed[cur] = true;
   }
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       per_sm, int8_conv_tc<KS, NJ>, T::WARPS * 32, T::BYTES);

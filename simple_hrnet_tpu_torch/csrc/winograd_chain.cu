@@ -71,6 +71,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the dynamic shared memory attribute is set per device: a function's
+// attribute lives in the current device's context
+constexpr int MAX_DEVICES = 64;
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -522,13 +526,16 @@ int wino_chain_c(const bf16* x, const bf16* ww, const float* b, bf16* out,
   using T = Tc<C>;
   // the dynamic shared memory the kernel has been allowed, set once so the
   // launch path stays free of attribute calls inside a CUDA graph capture
-  static bool allowed = false;
-  if (!allowed) {
+  static bool allowed[MAX_DEVICES] = {};
+  int cur = 0;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  if (!allowed[cur]) {
     const cudaError_t e = cudaFuncSetAttribute(
         wino_conv_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::BYTES);
     if (e != cudaSuccess) return (int)e;
-    allowed = true;
+    allowed[cur] = true;
   }
   // one wave of resident blocks, each walking its share of the tiles
   int dev = 0, sms = 0, per_sm = 0;

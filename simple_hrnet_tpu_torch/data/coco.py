@@ -12,7 +12,10 @@ COCO-AP evaluation (OKS rescoring, ``oks_nms`` / ``soft_oks_nms``).
 Items are NHWC numpy arrays (image HWC f32, target (h, w, J)); the train
 step moves them to the device. ``cv2`` is imported inside the two methods
 that read and warp an image (``_read_image``, ``_warp``), which a dataset
-of in-memory images may override.
+of in-memory images may override. ``use_native_decode=True`` reads each
+JPEG with the host library of ``data/native.py`` instead: one C call
+decodes, warps (the flip folded into the map) and normalizes (JAX
+coco.py:100-107, 203-216, 269-281).
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ from simple_hrnet_tpu_torch.ops import nms as nms_ops
 from simple_hrnet_tpu_torch.ops.image import INV255_STD, MEAN255
 
 __all__ = ['COCODataset', 'fliplr_joints', 'INV255_STD', 'MEAN255']
+
+# the native decode's normalize constants for the raw device_targets tail
+_RAW_MEAN = np.zeros(3, np.float32)
+_RAW_SCALE = np.ones(3, np.float32)
 
 
 def fliplr_joints(joints, joints_vis, width, matched_parts):
@@ -85,11 +92,12 @@ class COCODataset(HumanPoseEstimationDataset):
         self.use_different_joints_weight = use_different_joints_weight
         self.heatmap_sigma = heatmap_sigma
         self.soft_nms = soft_nms
+        # the fused native JPEG -> warp -> normalize path (data/native.py):
+        # built here, so that a missing toolchain or jpeglib.h raises now
         if use_native_decode:
-            raise NotImplementedError(
-                'use_native_decode (the fused native JPEG -> warp -> '
-                'normalize library) is not ported yet: ROADMAP A15')
-        self.use_native_decode = False
+            from simple_hrnet_tpu_torch.data import native as native_img
+            native_img._load()
+        self.use_native_decode = use_native_decode
         # device_targets: __getitem__ stops at the warp and returns the raw
         # [0, 255] image with the transformed joints; the train step
         # normalizes and stamps the targets on the device
@@ -203,7 +211,28 @@ class COCODataset(HumanPoseEstimationDataset):
         or with ``device_targets`` (raw [0, 255] image, joints (J, 2),
         joints_vis (J, 2), meta)."""
         joints_data = dict(self.data[index])
-        image = self._read_image(joints_data['imgPath'])
+        jpeg_bytes = None
+        image = None
+        fused_hw = None  # (img_w, img_h): fused native path, image undecoded
+        if self.use_native_decode:
+            from simple_hrnet_tpu_torch.data import native as native_img
+            with open(joints_data['imgPath'], 'rb') as f:
+                jpeg_bytes = f.read()
+            dims = native_img.jpeg_dims(jpeg_bytes) if self.color_rgb \
+                else None
+            if dims is not None:
+                # one C call makes the network-ready array; the flip folds
+                # into the warp map
+                fused_hw = dims
+            else:
+                image = native_img.decode_jpeg_rgb(jpeg_bytes)
+                if image is None:
+                    raise ValueError('Fail to read %s'
+                                     % joints_data['imgPath'])
+                if not self.color_rgb:
+                    image = image[..., ::-1]
+        else:
+            image = self._read_image(joints_data['imgPath'])
 
         joints = joints_data['joints'].copy()
         joints_vis = joints_data['joints_visibility'].copy()
@@ -229,21 +258,47 @@ class COCODataset(HumanPoseEstimationDataset):
             else:
                 r = 0
             if self.flip_prob and random.random() < self.flip_prob:
-                img_w = image.shape[1]
-                image = image[:, ::-1, :]
+                img_w = fused_hw[0] if fused_hw is not None \
+                    else image.shape[1]
+                flipped = True
+                if fused_hw is None:
+                    image = image[:, ::-1, :]
                 joints, joints_vis = fliplr_joints(
                     joints, joints_vis, img_w, self.flip_pairs)
                 c[0] = img_w - c[0] - 1
+            else:
+                flipped = False
+        else:
+            flipped = False
 
         trans = affine.affine_matrix(c, s, r, self.image_size,
                                      self.pixel_std)
-        image = self._warp(image, trans)
-        if self.device_targets:
-            # the step's (x - MEAN255) * INV255_STD consumes this raw tail:
-            # bit for bit the host normalize below
-            image = image.astype(np.float32)
+        if fused_hw is not None:
+            from simple_hrnet_tpu_torch.data import native as native_img
+            m_inv = affine.affine_matrix(c, s, r, self.image_size,
+                                         self.pixel_std, inv=True)
+            if flipped:
+                # the horizontal flip in the dst -> src map:
+                # src_x_original = (W - 1) - src_x_flipped
+                m_inv = np.stack([
+                    np.asarray([-m_inv[0, 0], -m_inv[0, 1],
+                                fused_hw[0] - 1 - m_inv[0, 2]], np.float32),
+                    m_inv[1].astype(np.float32)])
+            mean, scale = (_RAW_MEAN, _RAW_SCALE) if self.device_targets \
+                else (MEAN255, INV255_STD)
+            image = native_img.decode_warp_normalize(
+                jpeg_bytes, m_inv, int(self.image_size[1]),
+                int(self.image_size[0]), mean, scale)
+            if image is None:
+                raise ValueError('Fail to read %s' % joints_data['imgPath'])
         else:
-            image = (image.astype(np.float32) - MEAN255) * INV255_STD
+            image = self._warp(image, trans)
+            if self.device_targets:
+                # the step's (x - MEAN255) * INV255_STD consumes this raw
+                # tail: bit for bit the host normalize below
+                image = image.astype(np.float32)
+            else:
+                image = (image.astype(np.float32) - MEAN255) * INV255_STD
 
         for i in range(self.nof_joints):
             if joints_vis[i, 0] > 0.:

@@ -9,6 +9,16 @@ Threads are the default (imread/warpAffine release the GIL);
 the JAX package's (``np.random.default_rng(seed + epoch)``), so that an
 epoch of either package sees the same batches; ``torch.utils.data``'s
 samplers draw another order.
+
+``shard=(rank, count)`` (data-parallel training, one process a device)
+gives each of ``count`` processes its equal, disjoint rows of every global
+batch of ``batch_size`` rows, in the same shuffled global order: process
+``rank`` takes the ``rank``-th part. A short last batch (no
+``drop_last``) is padded to a multiple of ``count`` by repeating its last
+row; ``batch_rows(step)`` is the global batch's real row count. The
+augmentations are drawn in each process, so two processes see the global
+batch of one process where the items draw nothing at random (evaluation,
+or ``is_train=False``).
 """
 
 from __future__ import annotations
@@ -45,8 +55,13 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False,
                  seed: int = 0, prefetch_batches: int = 3,
-                 collate_fn=default_collate, use_processes: bool = False):
+                 collate_fn=default_collate, use_processes: bool = False,
+                 shard=None):
         self.use_processes = use_processes
+        self.shard = shard
+        if shard is not None and drop_last and batch_size % shard[1]:
+            raise ValueError(f'batch_size={batch_size} does not divide over '
+                             f'{shard[1]} processes')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -70,6 +85,18 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def batch_rows(self, step: int) -> int:
+        """The real (unpadded) rows of global batch ``step``."""
+        return min(self.batch_size, len(self.dataset) - step * self.batch_size)
+
+    def _shard(self, idx: np.ndarray) -> np.ndarray:
+        rank, count = self.shard
+        pad = (-len(idx)) % count
+        if pad:
+            idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+        k = len(idx) // count
+        return idx[rank * k:(rank + 1) * k]
+
     def __iter__(self) -> Iterator[Any]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
@@ -82,7 +109,7 @@ class DataLoader:
             idx = order[start:start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 break
-            batches.append(idx)
+            batches.append(idx if self.shard is None else self._shard(idx))
 
         out_q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()

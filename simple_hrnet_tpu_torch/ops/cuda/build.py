@@ -8,6 +8,10 @@ built at first use into ``simple_hrnet_tpu_torch/_build/`` (listed in
 source is rebuilt. ``build_all`` starts one ``nvcc`` per missing source,
 all at once, and waits for every one.
 
+``host_library`` builds the host C++ libraries (``csrc/host/*.cpp``:
+the box NMS of ``ops/nms.nms_numpy`` and the JPEG decode-warp-normalize of
+``data/native.py``) the same way, with ``g++``.
+
 Nothing here runs at import time: the CPU tests import every module on a
 host with no ``nvcc``.
 """
@@ -103,8 +107,73 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# the host libraries (csrc/host/<name>.cpp): the JAX package's
+# native/Makefile flags, one g++ each, at first use
+HOST_DIR = os.path.join(CSRC_DIR, 'host')
+HOST_FLAGS = ('-O3', '-march=native', '-fPIC', '-std=c++17', '-shared')
+HOST_LINK = {'nms': (), 'imgproc': ('-ljpeg',)}
+
+
+def _cpu_tag() -> bytes:
+    """The host CPU's model and feature flags: ``-march=native`` builds for
+    them, so a library built on another host is not reused."""
+    try:
+        with open('/proc/cpuinfo') as f:
+            lines = [ln for ln in f if ln.startswith(('model name', 'flags'))]
+        return ''.join(sorted(set(lines))).encode()
+    except OSError:
+        import platform
+        return platform.processor().encode()
+
+
+def _host_so_path(name: str) -> str:
+    h = hashlib.sha1()
+    with open(os.path.join(HOST_DIR, f'{name}.cpp'), 'rb') as f:
+        h.update(f.read())
+    h.update(' '.join(HOST_FLAGS + HOST_LINK[name]).encode())
+    h.update(_cpu_tag())
+    return os.path.join(BUILD_DIR, f'libhost_{name}-{h.hexdigest()[:12]}.so')
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` ('nms' or 'imgproc'), compiled by
+    ``g++`` into ``_build/`` first if missing. A failed build raises with
+    the compiler's output (a missing ``jpeglib.h`` is named there): the
+    callers never give way to another route."""
+    lib = _LIBS.get(f'host:{name}')
+    if lib is not None:
+        return lib
+    so = _host_so_path(name)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        cxx = os.environ.get('CXX') or shutil.which('g++') or 'g++'
+        tmp = f'{so}.{os.getpid()}.tmp'
+        cmd = [cxx, *HOST_FLAGS, '-o', tmp,
+               os.path.join(HOST_DIR, f'{name}.cpp'), *HOST_LINK[name]]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f'host library {name}: cannot run {cxx}: '
+                               f'{e}') from e
+        BUILD_LOGS[f'host:{name}'] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f'host library {name} failed to build ({" ".join(cmd)}):\n'
+                f'{proc.stdout}{proc.stderr}')
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    _LIBS[f'host:{name}'] = lib
+    return lib
+
+
 def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, for a kernel launch."""
+    """PyTorch's current CUDA stream on ``device``, for a kernel launch.
+
+    The ``ctypes`` launch goes through the CUDA runtime's current device,
+    so every wrapper launches inside ``torch.cuda.device(<input>.device)``:
+    a replica on ``cuda:1`` then launches in device 1's context, with
+    device 1's pointers and stream, and the caller's current device is put
+    back afterwards."""
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 

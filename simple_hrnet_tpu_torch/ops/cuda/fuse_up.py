@@ -130,9 +130,10 @@ def _fuse_up_cuda(base: torch.Tensor, ys: List[torch.Tensor],
         slots += [build.ptr(y), build.ptr(w), y.shape[-1], _SHIFTS[f]]
     for _ in range(MAX_SOURCES - len(ys)):
         slots += [build.ptr(None), build.ptr(None), 0, 0]
-    rc = _fn()(build.ptr(base), len(ys), *slots, build.ptr(bias_sum),
-               build.ptr(out), bsz, h, wd, c, DTYPE_CODES[base.dtype],
-               build.stream_ptr(base.device))
+    with torch.cuda.device(base.device):
+        rc = _fn()(build.ptr(base), len(ys), *slots, build.ptr(bias_sum),
+                   build.ptr(out), bsz, h, wd, c, DTYPE_CODES[base.dtype],
+                   build.stream_ptr(base.device))
     build.check(rc, 'fuse_up kernel')
     fuse_up.launches += 1
     return out

@@ -127,9 +127,10 @@ def _basic_chain_cuda(x: torch.Tensor, w: torch.Tensor,
         return out
     mid = torch.empty_like(x)
     tmp = torch.empty_like(x)
-    rc = _fn()(build.ptr(x), build.ptr(w), build.ptr(b), build.ptr(out),
-               build.ptr(mid), build.ptr(tmp), bsz, h, wd, c,
-               DTYPE_CODES[x.dtype], build.stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        rc = _fn()(build.ptr(x), build.ptr(w), build.ptr(b), build.ptr(out),
+                   build.ptr(mid), build.ptr(tmp), bsz, h, wd, c,
+                   DTYPE_CODES[x.dtype], build.stream_ptr(x.device))
     build.check(rc, 'basic_chain kernel')
     basic_chain.launches += 1
     return out

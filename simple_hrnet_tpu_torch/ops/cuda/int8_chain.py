@@ -176,10 +176,11 @@ def _int8_chain_cuda(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     tmp = torch.empty_like(x)
     qa = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     qmid = torch.empty_like(qa)
-    rc = _fn()(build.ptr(x), build.ptr(wq), build.ptr(wscale), build.ptr(b),
-               build.ptr(ascales), build.ptr(out), build.ptr(tmp),
-               build.ptr(qa), build.ptr(qmid), bsz, h, wd, c,
-               build.stream_ptr(x.device), int(round_handoffs))
+    with torch.cuda.device(x.device):
+        rc = _fn()(build.ptr(x), build.ptr(wq), build.ptr(wscale),
+                   build.ptr(b), build.ptr(ascales), build.ptr(out),
+                   build.ptr(tmp), build.ptr(qa), build.ptr(qmid), bsz, h,
+                   wd, c, build.stream_ptr(x.device), int(round_handoffs))
     build.check(rc, 'int8_chain kernel')
     int8_chain.launches += 1
     return out

@@ -106,10 +106,11 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     scratch = torch.empty((bsz * 32 * words * (words + 1),),
                           dtype=torch.int32, device=boxes.device)
     fn = _fn()
-    rc = fn(build.ptr(boxes), build.ptr(scores),
-            ctypes.c_float(iou_threshold), bsz, n, max_out,
-            build.ptr(keep_idx), build.ptr(keep_valid),
-            build.stream_ptr(boxes.device), build.ptr(scratch))
+    with torch.cuda.device(boxes.device):
+        rc = fn(build.ptr(boxes), build.ptr(scores),
+                ctypes.c_float(iou_threshold), bsz, n, max_out,
+                build.ptr(keep_idx), build.ptr(keep_valid),
+                build.stream_ptr(boxes.device), build.ptr(scratch))
     build.check(rc, 'nms kernel')
     nms.launches += 1
     return keep_idx, keep_valid

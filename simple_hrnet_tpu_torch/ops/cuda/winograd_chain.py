@@ -162,9 +162,10 @@ def _wino_chain_cuda(x: torch.Tensor, ww: torch.Tensor,
         return out
     mid = torch.empty_like(x)
     tmp = torch.empty_like(x)
-    rc = _fn()(build.ptr(x), build.ptr(ww), build.ptr(b), build.ptr(out),
-               build.ptr(mid), build.ptr(tmp), bsz, h, wd, c,
-               build.stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        rc = _fn()(build.ptr(x), build.ptr(ww), build.ptr(b), build.ptr(out),
+                   build.ptr(mid), build.ptr(tmp), bsz, h, wd, c,
+                   build.stream_ptr(x.device))
     build.check(rc, 'wino_chain kernel')
     wino_chain.launches += 1
     return out

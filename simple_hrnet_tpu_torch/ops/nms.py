@@ -9,9 +9,11 @@ kernel K1 on CUDA tensors and by its plain version on CPU tensors
 The host tier, in numpy, as the JAX package's (``ops/nms.py:154-290``):
 ``nms_numpy`` (greedy box NMS in f32, the +1 pixel convention) and the
 COCO evaluation's OKS suppression, ``oks_iou``, ``oks_nms``, ``rescore``
-and ``soft_oks_nms`` (reference misc/nms/nms.py). The JAX package's
-``libnms.so`` route of ``nms_numpy`` is not ported: its numpy path gives
-the same keep lists.
+and ``soft_oks_nms`` (reference misc/nms/nms.py). ``nms_numpy`` runs the
+JAX package's ``libnms`` route (its ops/nms.py:120-150): the port's copy
+of ``native/nms.cpp`` (``csrc/host/nms.cpp``), compiled by ``g++`` at
+first use; ``native=False`` runs the numpy path, which gives the same keep
+lists.
 """
 
 from __future__ import annotations
@@ -39,13 +41,36 @@ def nms_ingraph(boxes: torch.Tensor, scores: torch.Tensor,
     return nms(boxes, scores, iou_threshold, max_out)
 
 
-def nms_numpy(dets: np.ndarray, thresh: float) -> list:
+def _native_nms():
+    """The host ``cpu_nms`` (``csrc/host/nms.cpp``), built at first use; a
+    failed build raises with the compiler's output."""
+    import ctypes
+    from simple_hrnet_tpu_torch.ops.cuda.build import host_library
+    lib = host_library('nms')
+    lib.cpu_nms.restype = ctypes.c_int
+    lib.cpu_nms.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def nms_numpy(dets: np.ndarray, thresh: float, native: bool = True) -> list:
     """Greedy box NMS (misc/nms/nms.py:35-72, +1 convention) of (N, 5)
     [x1, y1, x2, y2, score] in float32. Returns the kept indices; tied
-    scores rank by descending index (a stable sort, reversed)."""
+    scores rank by descending index (a stable sort, reversed). The host
+    C++ library runs it unless ``native=False`` (the numpy loop, the same
+    f32 arithmetic and keep lists)."""
     if dets.shape[0] == 0:
         return []
     dets = np.ascontiguousarray(dets, np.float32)
+    if native:
+        import ctypes
+        keep = np.zeros(dets.shape[0], np.int32)
+        n = _native_nms().cpu_nms(
+            dets.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            dets.shape[0], ctypes.c_float(thresh),
+            keep.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+        return keep[:n].tolist()
     x1, y1, x2, y2, scores = (dets[:, i] for i in range(5))
     areas = (x2 - x1 + 1) * (y2 - y1 + 1)
     order = scores.argsort(kind='stable')[::-1]

@@ -18,6 +18,22 @@ weights); BN statistics are f32 and BN returns the activation's type; the
 head and the loss are f32. No port CUDA kernel runs here: the kernels
 serve the folded inference graph, and the JAX package's training forward
 never reaches its Pallas kernels either.
+
+``mesh`` (``parallel/mesh.py``) makes a step data-parallel, one process
+per device (the JAX package's sharded step, its ``steps.py``). Where the
+mesh carries a process group (``parallel/distributed.initialize``), the
+train step wraps the forward in ``DistributedDataParallel`` over the
+group, which averages the gradients: with equal rows a process, the
+gradient of the global-mean loss; where the group spans more than one
+process it also swaps every BN for ``parallel/sync_bn.GlobalBatchNorm2d``
+(the global batch's statistics, as the JAX step's one program computes
+them; a one-rank group keeps ``BatchNorm2d``, whose statistics are the
+global ones already). Both steps then return the global-mean loss and the
+heatmaps (and stamped targets) of the global batch, the same on every
+process. A mesh without a group is one process: the train step takes one
+device (more raise, naming the launch line), and the eval step splits its
+batch over the mesh's devices, one replica each, and gathers the outputs
+on the first.
 """
 
 from __future__ import annotations
@@ -31,6 +47,7 @@ from torch.func import functional_call
 
 from simple_hrnet_tpu_torch.models import layers as L
 from simple_hrnet_tpu_torch.ops.decode import flip_test_average
+from simple_hrnet_tpu_torch.parallel import distributed as D
 from simple_hrnet_tpu_torch.utils.device import host_to_device, true_f32
 
 
@@ -114,11 +131,50 @@ def forward(model: nn.Module, image: torch.Tensor,
     return out.float()
 
 
+class _Forward(nn.Module):
+    """``forward(model, image, dtype)`` as a module, so that
+    ``DistributedDataParallel`` wraps the bf16 weight casts with it."""
+
+    def __init__(self, model: nn.Module, dtype: Optional[torch.dtype]):
+        super().__init__()
+        self.model = model
+        self.dtype = dtype
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        return forward(self.model, image, self.dtype)
+
+
+def check_train_mesh(mesh) -> None:
+    """Training takes one device a process: a mesh over more local devices
+    raises, naming the launch that gives each device its process."""
+    if mesh is not None and mesh.local_size > 1:
+        raise ValueError(
+            f'a training mesh drives one device a process, this one has '
+            f'{mesh.local_size} local devices ({mesh}); launch one process '
+            f'per device: {D.launch_line(mesh.local_size)} (a one-process '
+            'mesh over several devices serves inference: SimpleHRNet(mesh='
+            '...) and Test(mesh=...))')
+
+
+def _data_parallel(model: nn.Module, cdt, mesh, device: torch.device):
+    """The DDP-wrapped forward over the mesh's group, with global BN where
+    the group spans more than one process."""
+    from torch.nn.parallel import DistributedDataParallel
+    from simple_hrnet_tpu_torch.parallel import sync_bn
+    if mesh.process_count > 1:
+        sync_bn.convert(model, mesh.group)
+    return DistributedDataParallel(
+        _Forward(model, cdt),
+        device_ids=[device] if device.type == 'cuda' else None,
+        process_group=mesh.group, broadcast_buffers=False)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable,
                     optimizer: torch.optim.Optimizer,
                     scheduler=None, dtype=None,
                     device_targets: Optional[Dict] = None,
-                    bn_momentum: float = L.BN_MOMENTUM) -> Callable:
+                    bn_momentum: float = L.BN_MOMENTUM,
+                    mesh=None) -> Callable:
     """The train step ``step(batch)`` -> (loss, out), or (loss, out,
     target) with ``device_targets``: loss a 0-d f32 tensor, out the f32
     heatmaps (N, h, w, J), both detached, on the model's device.
@@ -127,51 +183,93 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     (N, h, w, J), target_weight (N, J, 1); or with ``device_targets`` (see
     ``_batch_inputs``) the raw image, joints and joints_vis. Every
     BatchNorm2d's momentum is set to ``bn_momentum``. ``scheduler``
-    (``make_optimizer``'s) steps once a step."""
+    (``make_optimizer``'s) steps once a step. Under a ``mesh`` with a
+    process group the batch is this process's rows, and the step returns
+    the global-mean loss and the global batch's heatmaps (module
+    docstring)."""
     cdt = compute_dtype(dtype)
     set_bn_momentum(model, bn_momentum)
     device = next(model.parameters()).device
+    check_train_mesh(mesh)
+    multi = mesh is not None and mesh.group is not None
+    run = _data_parallel(model, cdt, mesh, device) if multi \
+        else _Forward(model, cdt)
 
     def step(batch):
         model.train()
         with true_f32():
             image, target, target_weight = _batch_inputs(
                 batch, device_targets, device)
-            out = forward(model, image, cdt)
+            out = run(image)
             loss = loss_fn(out, target, target_weight)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
         if scheduler is not None:
             scheduler.step()
+        loss, out = loss.detach(), out.detach()
+        if multi:
+            loss = D.all_mean(loss, mesh)
+            out = D.all_gather_rows(out, mesh)
+            if device_targets is not None:
+                target = D.all_gather_rows(target, mesh)
         if device_targets is not None:
-            return loss.detach(), out.detach(), target
-        return loss.detach(), out.detach()
+            return loss, out, target
+        return loss, out
 
     return step
 
 
 def make_eval_step(model: nn.Module, loss_fn: Callable,
                    flip_pairs: Optional[Sequence] = None, dtype=None,
-                   device_targets: Optional[Dict] = None) -> Callable:
+                   device_targets: Optional[Dict] = None,
+                   mesh=None) -> Callable:
     """The eval step ``step(batch)`` -> (loss, out), or (loss, out,
     target) with ``device_targets``: ``eval()`` mode, no gradients, and
     with ``flip_pairs`` the average of the heatmaps and the un-flipped
-    heatmaps of the width-flipped image (Test.py:134-141)."""
+    heatmaps of the width-flipped image (Test.py:134-141).
+
+    Under a ``mesh`` the batch (this process's rows) is cut into one equal
+    part per local device, each run by the model's replica there (copied
+    when the step is built), and the outputs are gathered on the model's
+    device, then over the processes; the loss is the mean of the parts'.
+    The caller pads the batch to a multiple of the mesh's size."""
     cdt = compute_dtype(dtype)
     device = next(model.parameters()).device
+    if mesh is not None:
+        from simple_hrnet_tpu_torch.parallel.mesh import replicate
+        replicas = replicate(model, mesh)
+        devices = mesh.devices
+    else:
+        replicas, devices = [model], [device]
+
+    def one(net, batch, dev):
+        net.eval()
+        image, target, target_weight = _batch_inputs(
+            batch, device_targets, dev)
+        out = forward(net, image, cdt)
+        if flip_pairs is not None:
+            out_f = forward(net, torch.flip(image, dims=[2]), cdt)
+            out = flip_test_average(out, out_f, flip_pairs)
+        return loss_fn(out, target, target_weight), out, target
 
     @torch.no_grad()
     def step(batch):
-        model.eval()
         with true_f32():
-            image, target, target_weight = _batch_inputs(
-                batch, device_targets, device)
-            out = forward(model, image, cdt)
-            if flip_pairs is not None:
-                out_f = forward(model, torch.flip(image, dims=[2]), cdt)
-                out = flip_test_average(out, out_f, flip_pairs)
-            loss = loss_fn(out, target, target_weight)
+            if len(replicas) == 1:
+                loss, out, target = one(replicas[0], batch, devices[0])
+            else:
+                from simple_hrnet_tpu_torch.parallel.mesh import shard_batch
+                res = [one(net, part, dev) for net, part, dev in
+                       zip(replicas, shard_batch(batch, mesh), devices)]
+                loss = torch.stack([r[0].to(device) for r in res]).mean()
+                out, target = (torch.cat([r[i].to(device) for r in res])
+                               for i in (1, 2))
+        if mesh is not None and mesh.group is not None:
+            loss = D.all_mean(loss, mesh)
+            out = D.all_gather_rows(out, mesh)
+            if device_targets is not None:
+                target = D.all_gather_rows(target, mesh)
         if device_targets is not None:
             return loss, out, target
         return loss, out

@@ -4,13 +4,24 @@ Counterpart of ``simple_hrnet_tpu/train/test.py``: loads a checkpoint
 (``.npz`` in the JAX package's layout, or ``.pth``), runs the no-grad
 eval loop with the optional flip-test average, and reports the mean loss
 and PCK accuracy.
+
+``mesh`` evaluates data-parallel (JAX test.py's sharded eval): one
+process over the mesh's devices (each batch padded to a multiple of
+them by repeating its last row and split, one model replica a device),
+or one process a device in a distributed job (each process its rows of
+the padded global batch); the outputs are gathered and the padding
+dropped before the metrics.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from simple_hrnet_tpu_torch.models.convert import load_into
+from simple_hrnet_tpu_torch.parallel import distributed
 from simple_hrnet_tpu_torch.train import losses as losses_mod
 from simple_hrnet_tpu_torch.train import steps as steps_mod
 from simple_hrnet_tpu_torch.train.trainer import build_model
@@ -32,11 +43,10 @@ class Test:
                  model_name: str = 'HRNet',
                  mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh (data-parallel evaluation) is not ported yet: ROADMAP '
-                'A14')
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.multi = mesh is not None and mesh.group is not None
+        self.device = mesh.devices[0] if mesh is not None \
+            else resolve_device(device)
         self.ds_test = ds_test
         self.flip_test_images = flip_test_images
 
@@ -49,11 +59,14 @@ class Test:
         flip_pairs = getattr(ds_test, 'flip_pairs', None) \
             if flip_test_images else None
         self._eval_step = steps_mod.make_eval_step(
-            self.model, self.loss_fn, flip_pairs=flip_pairs)
+            self.model, self.loss_fn, flip_pairs=flip_pairs, mesh=mesh)
 
         from simple_hrnet_tpu_torch.data.loader import DataLoader
+        shard = (mesh.process_index, mesh.process_count) if self.multi \
+            else None
         self.dl_test = DataLoader(ds_test, batch_size=batch_size,
-                                  shuffle=False, num_workers=num_workers)
+                                  shuffle=False, num_workers=num_workers,
+                                  shard=shard)
         self.len_dl_test = len(self.dl_test)
         self.mean_loss_test = 0.
         self.mean_acc_test = 0.
@@ -63,8 +76,19 @@ class Test:
         self.mean_acc_test = 0.
         for step, (image, target, target_weight, joints_data) in enumerate(
                 self.dl_test):
-            loss, output = self._eval_step({'image': image, 'target': target,
-                                            'target_weight': target_weight})
+            true_n = self.dl_test.batch_rows(step)
+            batch = {'image': image, 'target': target,
+                     'target_weight': target_weight}
+            if self.mesh is not None and not self.multi:
+                pad = (-len(image)) % self.mesh.local_size
+                batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, 0)])
+                         for k, v in batch.items()}
+            loss, output = self._eval_step(batch)
+            if self.multi:
+                target = distributed.all_gather_rows(
+                    torch.as_tensor(np.asarray(target), device=self.device),
+                    self.mesh)
+            output, target = output[:true_n], target[:true_n]
             accs, avg_acc, cnt, joints_preds, joints_target = \
                 self.ds_test.evaluate_accuracy(output, target)
             self.mean_loss_test += float(loss)

@@ -9,6 +9,18 @@ image grids, and checkpoints: ``checkpoint_last`` (``save_train``) and
 ``params_{last,best_loss,best_acc,best_mAP}.npz`` in the JAX package's
 layout. The model trains unfolded, in ``train()`` mode, through autograd
 over cuDNN convs; it is never packed for the inference kernels.
+
+``mesh`` trains data-parallel, one process a device (``torchrun
+--nproc_per_node=N``, then ``parallel/distributed.initialize()`` and
+``parallel.make_mesh()``), as the JAX trainer shards its batches over a
+mesh (its trainer.py:206-218, 251-253, 290-296): the loaders give each
+process its rows of the same shuffled global batches (``DataLoader``'s
+``shard``), the steps return the global loss and heatmaps
+(``train/steps.py``), the batches' metadata is gathered, the evaluation
+batch is padded to a multiple of the data axis and the padding dropped
+before the metrics, and only process 0 writes logs and checkpoints. A
+mesh over more local devices than one raises: training takes one process
+a device.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ import torch.nn as nn
 
 from simple_hrnet_tpu_torch.models import hrnet, poseresnet
 from simple_hrnet_tpu_torch.ops import decode as D
+from simple_hrnet_tpu_torch.parallel import distributed as dist_mod
 from simple_hrnet_tpu_torch.train import losses as losses_mod
 from simple_hrnet_tpu_torch.train import steps as steps_mod
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
@@ -93,15 +106,16 @@ class Train:
                  use_process_workers: bool = False,
                  device_targets: bool = False,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh (data-parallel training) is not ported yet: ROADMAP '
-                'A14')
+        steps_mod.check_train_mesh(mesh)
         if use_grouped_trunk:
             raise NotImplementedError(
                 'use_grouped_trunk is the TPU 128-lane grouped trunk, which '
                 'the port does not carry (ROADMAP queue A)')
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else resolve_device(device)
+        # only process 0 writes logs and checkpoints
+        self.is_writer = mesh is None or mesh.process_index == 0
         self.exp_name = exp_name
         self.ds_train = ds_train
         self.ds_val = ds_val
@@ -116,21 +130,25 @@ class Train:
         self.epoch = 0
 
         ts = datetime.now().strftime('%Y%m%d_%H%M')
+        if mesh is not None:  # one experiment directory for every process
+            ts = dist_mod.all_gather_objects(ts, mesh)[0]
         self.log_path = os.path.join(log_path, f'{ts}_{exp_name}')
-        os.makedirs(self.log_path, exist_ok=True)
 
         self.use_tensorboard = use_tensorboard
         self.summary_writer = None
-        if use_tensorboard:
-            import tensorboardX
-            self.summary_writer = tensorboardX.SummaryWriter(self.log_path)
-
-        parameters = {k: v for k, v in locals().items()
-                      if k not in ('self', 'ds_train', 'ds_val')}
-        with open(os.path.join(self.log_path, 'parameters.txt'), 'w') as fd:
-            fd.write(str(parameters))
-        if self.summary_writer is not None:
-            self.summary_writer.add_text('parameters', str(parameters))
+        if self.is_writer:
+            os.makedirs(self.log_path, exist_ok=True)
+            if use_tensorboard:
+                import tensorboardX
+                self.summary_writer = tensorboardX.SummaryWriter(
+                    self.log_path)
+            parameters = {k: v for k, v in locals().items()
+                          if k not in ('self', 'ds_train', 'ds_val')}
+            with open(os.path.join(self.log_path, 'parameters.txt'),
+                      'w') as fd:
+                fd.write(str(parameters))
+            if self.summary_writer is not None:
+                self.summary_writer.add_text('parameters', str(parameters))
 
         self.model = build_model(model_name, model_c, model_nof_joints, seed,
                                  self.device)
@@ -141,13 +159,19 @@ class Train:
             print(f'Pre-trained weights loaded from {pretrained_weight_path}')
 
         from simple_hrnet_tpu_torch.data.loader import DataLoader
+        # data parallel: each process its rows of the same global batches
+        self.multi = mesh is not None and mesh.group is not None
+        shard = (mesh.process_index, mesh.process_count) if self.multi \
+            else None
         self.dl_train = DataLoader(ds_train, batch_size=batch_size,
                                    shuffle=True, num_workers=num_workers,
                                    drop_last=True, seed=seed,
-                                   use_processes=use_process_workers)
+                                   use_processes=use_process_workers,
+                                   shard=shard)
         self.dl_val = DataLoader(ds_val, batch_size=batch_size,
                                  shuffle=False, num_workers=num_workers,
-                                 use_processes=use_process_workers)
+                                 use_processes=use_process_workers,
+                                 shard=shard)
         self.len_dl_train = len(self.dl_train)
         self.len_dl_val = len(self.dl_val)
 
@@ -205,12 +229,12 @@ class Train:
         self._train_step = steps_mod.make_train_step(
             self.model, self.loss_fn, self.optimizer, self.scheduler,
             dtype=dtype, device_targets=dt_cfg,
-            bn_momentum=model_bn_momentum)
+            bn_momentum=model_bn_momentum, mesh=mesh)
         flip_pairs = getattr(ds_val, 'flip_pairs', None) \
             if flip_test_images else None
         self._eval_step = steps_mod.make_eval_step(
             self.model, self.loss_fn, flip_pairs=flip_pairs, dtype=dtype,
-            device_targets=dt_cfg_val)
+            device_targets=dt_cfg_val, mesh=mesh)
 
         # the bests come back with a resume, so that a later epoch cannot
         # overwrite params_best_*.npz with a worse model
@@ -231,6 +255,26 @@ class Train:
                 else ('image', 'target', 'target_weight'))
         return dict(zip(keys, (image, second, third)))
 
+    def _global(self, res, batch, joints_data, true_n=None):
+        """(loss, heatmaps, targets, metadata) of the global batch from a
+        step's result on this process's rows: the steps gather the
+        heatmaps and targets, the metadata is gathered here; with
+        ``true_n``, the padding rows past it are dropped."""
+        loss, output = res[0], res[1]
+        if self.device_targets:
+            target = res[2]
+        else:
+            target = batch['target']
+            if self.multi:
+                target = dist_mod.all_gather_rows(torch.as_tensor(
+                    np.asarray(target), device=self.device), self.mesh)
+        if self.multi:
+            joints_data = dist_mod.all_gather_meta(joints_data, self.mesh)
+        if true_n is not None and output.shape[0] > true_n:
+            output, target = output[:true_n], target[:true_n]
+            joints_data = _trim_meta(joints_data, true_n)
+        return loss, output, target, joints_data
+
     def _train(self):
         self.mean_loss_train = 0.
         self.mean_acc_train = 0.
@@ -244,8 +288,8 @@ class Train:
             batch = self._make_batch(image, second, third)
             with anomaly:
                 res = self._train_step(batch)
-            loss, output = res[0], res[1]
-            target = res[2] if self.device_targets else batch['target']
+            loss, output, target, joints_data = self._global(
+                res, batch, joints_data)
             accs, avg_acc, cnt, joints_preds, joints_target = \
                 self.ds_train.evaluate_accuracy(output, target)
             loss = float(loss)
@@ -266,8 +310,8 @@ class Train:
                 self.dl_val):
             batch = self._make_batch(image, second, third)
             res = self._eval_step(batch)
-            loss, output = res[0], res[1]
-            target = res[2] if self.device_targets else batch['target']
+            loss, output, target, joints_data = self._global(
+                res, batch, joints_data, self.dl_val.batch_rows(step))
             accs, avg_acc, cnt, joints_preds, joints_target = \
                 self.ds_val.evaluate_accuracy(output, target)
             self.mean_loss_val += float(loss)
@@ -301,14 +345,18 @@ class Train:
                 return t.detach().cpu().numpy() if isinstance(
                     t, torch.Tensor) else np.asarray(t)
 
-            save_images(image, host(target), host(joints_target),
-                        host(output), host(joints_preds),
-                        joints_data['joints_visibility'],
+            # under a mesh the image is this process's (the first) rows
+            n = len(image)
+            save_images(image, host(target)[:n], host(joints_target)[:n],
+                        host(output)[:n], host(joints_preds)[:n],
+                        joints_data['joints_visibility'][:n],
                         self.summary_writer, step=global_step,
                         prefix=f'{prefix}_')
 
     def _checkpoint(self):
-        """last and best loss/acc/mAP (Train.py:313-332)."""
+        """last and best loss/acc/mAP (Train.py:313-332), by process 0."""
+        if not self.is_writer:
+            return
         if self.best_loss is None or self.best_loss > self.mean_loss_val:
             self.best_loss = self.mean_loss_val
             print(f'best_loss {self.best_loss:f} at epoch {self.epoch + 1}')
@@ -398,7 +446,7 @@ class COCOTrain(Train):
         self.val_accs, self.mean_mAP_val = self._overall(self.ds_val)
 
     def _overall(self, ds):
-        if not self._all_preds:
+        if not self._all_preds or not self.is_writer:
             return {}, 0.0
         preds = np.concatenate(self._all_preds)
         boxes = np.concatenate(self._all_boxes)
@@ -407,10 +455,50 @@ class COCOTrain(Train):
 
 
 class MPIITrain(COCOTrain):
-    """The MPII trainer (PCKh@0.5 as the overall metric) is not ported
-    yet: it comes with the MPII dataset (ROADMAP A13)."""
+    """MPII trainer (the JAX package's trainer.py:446-490): the COCO
+    trainer's per-epoch accumulation of final predictions in original image
+    coordinates, with PCKh@0.5 (``data/mpii.py``) as the overall metric.
+    Predictions are matched to their annotations by the dataset row each
+    batch carries (``joints_data['index']``), so the metric holds off the
+    shuffled ``drop_last`` train loader; the train-mode PCKh stays
+    approximate for flipped or rotated samples (the un-warp ignores the
+    augmentation, as the reference's train AP does): the val number is the
+    one to read."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'MPIITrain is not ported yet: it comes with data/mpii.py '
-            '(ROADMAP A13, the MPII slice)')
+    def _reset_epoch_preds(self):
+        super()._reset_epoch_preds()
+        self._indices = []
+
+    def _accumulate(self, output, joints_data):
+        super()._accumulate(output, joints_data)
+        if 'index' in joints_data:
+            self._indices.extend(
+                int(i) for i in np.asarray(joints_data['index']).ravel())
+
+    def _overall(self, ds):
+        if not self._all_preds or not self.is_writer:
+            return {}, 0.0
+        preds = np.concatenate(self._all_preds)
+        boxes = np.concatenate(self._all_boxes)
+        idx = self._indices if len(self._indices) == len(preds) else None
+        return ds.evaluate_overall_accuracy(
+            preds, boxes, self._image_paths, output_dir=self.log_path,
+            indices=idx)
+
+    def _train(self):
+        self._reset_epoch_preds()
+        Train._train(self)
+        print('\nTrain PCKh@0.5')
+        self.train_accs, self.mean_mAP_train = self._overall(self.ds_train)
+
+    def _val(self):
+        self._reset_epoch_preds()
+        Train._val(self)
+        print('\nVal PCKh@0.5')
+        self.val_accs, self.mean_mAP_val = self._overall(self.ds_val)
+
+
+def _trim_meta(meta: dict, n: int) -> dict:
+    """A gathered ``joints_data`` without its rows past ``n``."""
+    return {k: v[:n] if isinstance(v, (np.ndarray, list)) else v
+            for k, v in meta.items()}

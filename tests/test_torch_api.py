@@ -232,11 +232,19 @@ def test_whole_slice_matches_jax(facades):
     _assert_same_people(port.predict(frames[0]), single)
 
 
-@pytest.mark.parametrize('kwargs', [dict(mesh=object())])
+class _TwoProcessMesh:
+    """A training mesh: one CPU device in each of two processes."""
+    devices = [torch.device('cpu')]
+    process_count, local_size, size = 2, 1, 2
+
+
+@pytest.mark.parametrize('kwargs', [dict(mesh=_TwoProcessMesh())])
 def test_unported_options_raise(tmp_path, kwargs):
+    """The facade drives a mesh from one process: a mesh that spans
+    several processes is refused."""
     path = str(tmp_path / 'w8.pth')
     torch.save(TH.init(8, 17).state_dict(), path)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='from one process'):
         SimpleHRNet(8, 17, path, resolution=RES, device='cpu', **kwargs)
 
 

@@ -36,6 +36,7 @@ from simple_hrnet_tpu.utils import checkpoint as JCkpt
 from simple_hrnet_tpu_torch.cli import train_coco as TCli
 from simple_hrnet_tpu_torch.data import coco as TCOCO
 from simple_hrnet_tpu_torch.data import loader as TLoader
+from simple_hrnet_tpu_torch.parallel import make_mesh
 from simple_hrnet_tpu_torch.train.test import Test as TTest
 from simple_hrnet_tpu_torch.train import trainer as TTrainer
 from simple_hrnet_tpu_torch.utils import checkpoint as TCkpt
@@ -263,21 +264,19 @@ def test_train_coco_cli_one_epoch(coco_root, tmp_path):
 
 
 def test_unported_options_raise(coco_root, tmp_path):
+    """The TPU grouped trunk stays unported; a training mesh over two
+    local devices and ``--n_devices 2`` without a launcher raise, naming
+    the one-process-a-device launch line."""
     ds = _ds(TCOCO, coco_root, is_train=False)
     kw = _trainer_kw(coco_root, str(tmp_path), device='cpu')
-    with pytest.raises(NotImplementedError, match='A14'):
-        TTrainer.Train(ds_train=ds, ds_val=ds, **dict(kw, mesh=object()))
+    with pytest.raises(ValueError, match='torchrun --nproc_per_node=2'):
+        TTrainer.Train(ds_train=ds, ds_val=ds,
+                       **dict(kw, mesh=make_mesh(2, device='cpu')))
     with pytest.raises(NotImplementedError, match='grouped'):
         TTrainer.Train(ds_train=ds, ds_val=ds,
                        **dict(kw, use_grouped_trunk=True))
-    with pytest.raises(NotImplementedError, match='A15'):
-        _ds(TCOCO, coco_root, use_native_decode=True)
-    with pytest.raises(NotImplementedError, match='MPII'):
-        TTrainer.MPIITrain(ds_train=ds, ds_val=ds, **kw)
-    with pytest.raises(NotImplementedError, match='A14'):
+    with pytest.raises(ValueError, match='torchrun --nproc_per_node=2'):
         TCli.main('x', n_devices=2, coco_root_path=coco_root)
-    with pytest.raises(NotImplementedError, match='A14'):
-        TTest(ds, mesh=object(), device='cpu')
     if not torch.cuda.is_available():
         # the card is the default; the host only when asked
         with pytest.raises(RuntimeError, match="device='cpu'"):

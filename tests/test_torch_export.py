@@ -24,6 +24,8 @@ from simple_hrnet_tpu_torch.models import hrnet as TH
 from simple_hrnet_tpu_torch.models import poseresnet as TP
 from simple_hrnet_tpu_torch.utils import export as TE
 
+from test_torch_api import _TwoProcessMesh
+
 RES = (64, 64)
 
 
@@ -146,7 +148,7 @@ def test_batches_are_padded_to_the_engine_batch(npz):
 def test_engine_errors(npz, w8_engines):
     """The JAX facade's resolution and ``int8_exclude`` errors; a
     ``.jaxpose`` (by name or by content) and ``int8_exclude`` without int8
-    raise ``ValueError``; ``mesh`` stays unported."""
+    raise ``ValueError``; so does a mesh that spans several processes."""
     jpath, path = w8_engines
     kw = dict(multiperson=False, device='cpu', enable_tensorrt=True)
     with pytest.raises(ValueError, match=r'engine resolution \(64, 64\) != '
@@ -155,8 +157,9 @@ def test_engine_errors(npz, w8_engines):
     with pytest.raises(ValueError, match='int8_exclude has no effect'):
         SimpleHRNet(8, 17, path, resolution=RES, dtype='int8',
                     int8_exclude=('stage4',), **kw)
-    with pytest.raises(NotImplementedError, match='mesh'):
-        SimpleHRNet(8, 17, path, resolution=RES, mesh=object(), **kw)
+    with pytest.raises(ValueError, match='from one process'):
+        SimpleHRNet(8, 17, path, resolution=RES, mesh=_TwoProcessMesh(),
+                    **kw)
     renamed = str(npz['dir'] / 'w8_jax.torchpose')
     with open(jpath, 'rb') as src, open(renamed, 'wb') as dst:
         dst.write(src.read())

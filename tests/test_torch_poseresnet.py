@@ -76,6 +76,16 @@ def test_poseresnet_matches_jax(size):
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
 
 
+def _within_one_bf16_ulp(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per element: |a - b| <= one bf16 ulp of max(|a|, |b|), the ulp taken
+    from the binade's exponent (2 ** (e - 8) for m = f * 2 ** e, f in
+    [0.5, 1): bf16 keeps 8 significant bits)."""
+    m = np.maximum(np.abs(a), np.abs(b)).astype(np.float64)
+    _, e = np.frexp(m)
+    ulp = np.ldexp(1.0, e - 8)
+    return np.abs(a.astype(np.float64) - b.astype(np.float64)) <= ulp
+
+
 def test_fold_matches_unfolded_and_jax():
     """BN folding, the transposed convs' included: the folded network
     equals the unfolded one, and each folded transposed-conv weight and
@@ -101,9 +111,12 @@ def test_fold_matches_unfolded_and_jax():
         assert deconv.weight.shape == want.shape
         np.testing.assert_allclose(deconv.weight.numpy(), want.numpy(),
                                    rtol=1e-6, atol=0)
-        np.testing.assert_allclose(deconv.weight.bfloat16().float().numpy(),
-                                   want.bfloat16().float().numpy(),
-                                   rtol=2.0 ** -8, atol=0)
+        got16 = deconv.weight.bfloat16().float().numpy()
+        want16 = want.bfloat16().float().numpy()
+        assert _within_one_bf16_ulp(got16, want16).all()
+        # control: a BN scale off by 1% moves the casts by more than that
+        off16 = (want * 1.01).bfloat16().float().numpy()
+        assert not _within_one_bf16_ulp(got16, off16).all()
         np.testing.assert_allclose(deconv.bias.numpy(),
                                    np.asarray(jfold[str(i)]['bias']),
                                    rtol=1e-6, atol=1e-7)

@@ -6,8 +6,8 @@ network finds people and scores them apart: ``torch_v5_weights``), at a
 small ``img_size``: a 640 JAX detector
 on the CPU is slow. f32 throughout, inputs from a numpy seed. Tolerances:
 network outputs 2e-4 (the house tolerance, relative on box sizes of up to
-~1500 px); detect rows the same valid slots with boxes within 2e-4 px and
-scores within 1e-5; int8 operands and each quantized conv bit for bit
+~1500 px); detect rows the same valid slots with boxes within 2e-4 px
+plus 2e-6 relative (the corners reach ~650 px) and scores within 1e-5; int8 operands and each quantized conv bit for bit
 from the same calibration map; the facades as tests/test_torch_api.py
 holds them.
 """
@@ -42,6 +42,7 @@ from torch_v5_weights import write_yolov5_pt
 
 TOL = 2e-4
 SIZE = 128  # the detectors' img_size
+BOX_RTOL = 2e-6  # detect_padded's box corners, beside TOL
 
 
 @pytest.fixture(scope='module')
@@ -165,7 +166,16 @@ def test_detect_padded_matches_jax(pt, phase_stem):
     assert tv.dtype == bool and tr.shape == jr.shape == (2, 32, 7)
     np.testing.assert_array_equal(tv, jv)
     assert 0 < jv.sum()
-    np.testing.assert_allclose(tr[jv][:, :4], jr[jv][:, :4], atol=TOL)
+    # box corners reach ~650 px through the exp-like (2 s)^2 * anchor and
+    # the letterbox un-scale: the raw head outputs of the two packages
+    # already differ by tens of f32 ulps (their conv sums run in another
+    # order), so the corners are held at TOL plus 2e-6 relative (~16 ulps
+    # at their scale); the same rows shifted by 0.01 px must fail
+    np.testing.assert_allclose(tr[jv][:, :4], jr[jv][:, :4], atol=TOL,
+                               rtol=BOX_RTOL)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(tr[jv][:, :4] + 0.01, jr[jv][:, :4],
+                                   atol=TOL, rtol=BOX_RTOL)
     np.testing.assert_allclose(tr[jv][:, 4:6], jr[jv][:, 4:6], atol=1e-5)
     assert (tr[jv][:, 6] == 0).all() and (jr[jv][:, 6] == 0).all()
     out = tdet.predict(frames[..., ::-1])
