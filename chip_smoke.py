@@ -157,13 +157,29 @@ Phases (any failure exits nonzero):
      The host libraries: ``nms_numpy``'s host-library route equals its
      numpy route on the YOLOv3 detections of phase 4's frames; the JPEG
      library is built and checked where ``jpeglib.h`` is installed, and
-     the phase says so where it is not.
+     the phase says so where it is not;
+ 11. the production-geometry goldens (``tests/torch_goldens.py``): the
+     seeded weight files of BASELINE.json's five configs and the
+     scoreboard path are drawn again with numpy and must reproduce the
+     goldens' fingerprints ("weights differ" otherwise); each config then
+     runs through the facade on the card with the kernels, in f32 and in
+     its golden low-precision dtypes (W32-256x192 single-person in f32,
+     bf16 and int8; PoseResNet-50-256x192 on 4 frames; W48-384x288 at
+     ``max_batch_size=16`` on 16 frames in f32 and 2 in bf16; YOLOv3-tiny
+     + W32; YOLOv5m-640 + W48 ``predict_stream`` on 8 frames at 8 people;
+     YOLOv3-416 + W48 at 32 people), launches counted around each call
+     (K1 once a detect, the chain and K3 8 times a pose forward), and is
+     held against the JAX package's answers with the helper's card limits
+     (f32 heatmaps within 1e-3 of max, boxes and decisive keypoints within
+     1e-3 px; bf16 and int8 within twice the JAX package's own distance
+     to f32); two controls (other frames' golden, a zeroed chain in f32,
+     bf16 and int8) must fail; all five kernels must have run.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
 ``--kernels-only`` flag stops after phase 2 (for iterating on a kernel);
-``--train-only`` runs phase 9 alone, ``--parallel-only`` phase 10 (after
-building the kernels).
+``--train-only`` runs phase 9 alone, ``--parallel-only`` phase 10 and
+``--goldens-only`` phase 11 (after building the kernels).
 Imports nothing of JAX.
 """
 
@@ -3135,6 +3151,147 @@ def run_parallel_phase(dev, tmp, pths, weights, counters):
     return runs, summary
 
 
+def _goldens_module():
+    """``tests/torch_goldens.py``: the seeded weights, the golden configs,
+    their limits and the comparison (JAX-free)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tests'))
+    import torch_goldens
+    return torch_goldens
+
+
+def _golden_chain(cfg, dtype):
+    """The chain kernel the port runs 8 times a pose forward at a golden
+    config (None: PoseResNet, no chain)."""
+    if cfg.get('model_name') == 'PoseResNet':
+        return None
+    if dtype == 'int8':
+        return 'int8_chain'
+    return ('wino_chain' if (cfg['c'], dtype) == (32, 'bfloat16')
+            else 'basic_chain')
+
+
+def run_golden(G, config, dtype, n, paths, counters, golden):
+    """One golden config on the card in ``dtype`` (kernels on): launches
+    counted around the config's call (K1 once a detect, the chain and K3 8
+    times a pose forward), then held against the JAX package's golden.
+    Returns the comparison record and the outputs."""
+    model = G.port_facade(config, paths, dtype, device='cuda')
+    frames = G.config_frames(config)[:n]
+    seen, detects = [], []
+    det = model.detector
+    if det is not None:
+        real_detect = det.detect_padded
+        det.detect_padded = lambda f: (detects.append(f.shape[0]),
+                                       real_detect(f))[1]
+    hook = model.model.register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0].shape[0]))
+    try:
+        for k in counters.values():
+            k.launches = 0
+        outs = G.run_facade(model, config, frames)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        hook.remove()
+        if det is not None:
+            del det.detect_padded
+    chain = _golden_chain(G.CONFIGS[config], dtype)
+    want = {k: 0 for k in counters}
+    if chain is not None:
+        want[chain] = want['fuse_up'] = 8 * len(seen)
+    want['nms'] = len(detects)
+    if launches != want or not seen:
+        raise AssertionError(f'phase 11 [{config} {dtype}]: launches '
+                             f'{launches} over {len(detects)} detects and '
+                             f'{len(seen)} pose forwards; want {want}')
+    rows = G.detector_rows(det, frames) if det is not None else None
+    r = G.compare(outs, golden, dtype, 'card', rows=rows,
+                  frames=slice(0, n) if n else None)
+    r.update(launches=launches, pose_batches=seen)
+    print(f'phase 11 {G.report(r)}; launches {launches}', flush=True)
+    if not r['ok']:
+        raise AssertionError(f'phase 11: {G.report(r)}')
+    del model
+    torch.cuda.empty_cache()
+    return r, outs
+
+
+def golden_controls(G, paths, w48_outs):
+    """Each gate must fail on a wrong input: W48's frames 0-1 against the
+    golden's frames 2-3, and W32's plain path (``use_fused_kernels=False``)
+    with stage 3's first branch-0 chain output zeroed, in f32, bf16 and
+    int8."""
+    rec = {}
+    r = G.compare(w48_outs[:2], G.load_golden('w48_384x288_batch16'), 'f32',
+                  'card', frames=slice(2, 4))
+    if r['ok']:
+        raise AssertionError(f'phase 11 control: another frame\'s golden '
+                             f'passed: {G.report(r)}')
+    rec['other_frames_heatmap_rel_max'] = r['heatmap_rel_max']
+    config = 'w32_256x192_single'
+    golden = G.load_golden(config)
+    for dtype in ('f32', 'bfloat16', 'int8'):
+        model = G.port_facade(config, paths, dtype, device='cuda',
+                              use_fused_kernels=False)
+        hook = G.zero_chain(model.model)
+        try:
+            outs = G.run_facade(model, config, G.config_frames(config))
+        finally:
+            hook.remove()
+        r = G.compare(outs, golden, dtype, 'card')
+        if r['ok']:
+            raise AssertionError(f'phase 11 control: a zeroed chain passed '
+                                 f'{dtype}: {G.report(r)}')
+        rec[f'zeroed_chain_{dtype}_heatmap_rel_max'] = r['heatmap_rel_max']
+    print(f'phase 11 controls fail as they must (heatmap distance, of '
+          f'max): {rec}', flush=True)
+    return rec
+
+
+def run_goldens_phase(counters):
+    """Phase 11 (see the module docstring). Returns its record and the
+    launches of each config's run."""
+    from simple_hrnet_tpu_torch.ops.cuda import build
+
+    G = _goldens_module()
+    t0 = time.perf_counter()
+    summary, runs = {'card': card_line()}, {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        files = G.write_weights(tmp)
+        paths = {k: v[0] for k, v in files.items()}
+        goldens = {c: G.load_golden(c) for c in G.CONFIGS}
+        for config, golden in goldens.items():
+            for name, w in golden['weights'].items():
+                if files[name][1] != w['sha256']:
+                    raise AssertionError(
+                        f'phase 11: weights differ: {name} drew '
+                        f'{files[name][1]}, the golden of {config} was made '
+                        f'from {w["sha256"]}')
+        summary['weights_s'] = time.perf_counter() - t0
+        print(f'phase 11: seeded weights written and their fingerprints '
+              f'equal the goldens\' in {summary["weights_s"]:.1f} s',
+              flush=True)
+        w48_outs = None
+        for config, cfg in G.CONFIGS.items():
+            for dtype, n in cfg['card'].items():
+                r, outs = run_golden(G, config, dtype, n, paths, counters,
+                                     goldens[config])
+                summary[f'{config}/{dtype}'] = r
+                runs[f'goldens/{config}/{dtype}'] = r['launches']
+                if (config, dtype) == ('w48_384x288_batch16', 'f32'):
+                    w48_outs = outs
+        summary['controls'] = golden_controls(G, paths, w48_outs)
+    totals = {k: sum(l[k] for l in runs.values()) for k in counters}
+    if not all(totals.values()):
+        raise AssertionError(f'phase 11: a kernel did not run against the '
+                             f'goldens: {totals}')
+    summary['seconds'] = time.perf_counter() - t0
+    print(f'phase 11: every config within its limits; launches {totals}; '
+          f'{summary["seconds"]:.1f} s', flush=True)
+    return runs, summary
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -3161,6 +3318,8 @@ def main():
                     help='run phase 9 only (it builds no kernel)')
     ap.add_argument('--parallel-only', action='store_true',
                     help='build the kernels, then run phase 10 only')
+    ap.add_argument('--goldens-only', action='store_true',
+                    help='build the kernels, then run phase 11 only')
     ap.add_argument('--dp-child', nargs=4, help=argparse.SUPPRESS,
                     metavar=('ADDR', 'RANK', 'INPUTS', 'OUT'))
     args = ap.parse_args()
@@ -3206,6 +3365,12 @@ def main():
         print(card_line())
         return 0
 
+    if args.goldens_only:
+        runs, summary = run_goldens_phase(counters)
+        print(json.dumps({'goldens': summary, 'launches': runs}))
+        print(card_line())
+        return 0
+
     rec = {}
     check_nms(dev, rec)
     check_chain(dev, rec)
@@ -3247,6 +3412,8 @@ def main():
             mesh_launches, summary['parallel'] = run_parallel_phase(
                 dev, tmp, pths, weights, counters)
             stream_launches.update(mesh_launches)
+            golden_launches, summary['goldens'] = run_goldens_phase(counters)
+            stream_launches.update(golden_launches)
             for run, launches in stream_launches.items():
                 for k in counters:
                     totals[k] += launches[k]

@@ -1,0 +1,689 @@
+"""Production-geometry goldens: the JAX package's answers that the port is
+held to, at the full width and resolution of BASELINE.json's five configs
+and of the scoreboard path (JAX-free to import).
+
+``python tests/torch_goldens.py`` regenerates ``tests/goldens/port_*.json``
+from the JAX package on the CPU (JAX imported inside ``main``; about 3
+minutes on 8 cores, the JAX facade's Pallas kernels interpreted as on
+its TPU, and a rerun writes the same bytes). The committed set was
+produced by the JAX package at commit
+2f2a6d02de164243f3d37aa40d232e49dd3cf64b (the last commit touching
+``simple_hrnet_tpu/``), which each golden records. A deliberate numeric
+change to the JAX package or to the port must regenerate them; a change
+that moves a golden otherwise is a fault.
+
+The weights are seeded, not downloaded: every parameter is drawn with
+numpy (``np.random.default_rng(seed)``, in ``state_dict`` order, torch's
+default kaiming-uniform bound ``gain / sqrt(fan_in)``), BN statistics are
+the identity, and the files are written by the port's own writers
+(``torch.save``, ``darknet.save_darknet_weights``, an ultralytics-style
+``{'model': net}`` pickle). numpy draws the same values on every host and
+torch version, and ``fingerprint`` (a sha256 over the parameters' bytes,
+not the file's) proves it. Gains above 1 are for the networks whose
+activations torch's default bound shrinks to nothing (PoseResNet's
+deconvolutions, the detectors' deep stacks): there the output would be a
+constant plus float noise, and neither a keypoint nor a detection order
+could be compared. Each detector's objectness rows are scaled and its
+person logit raised so that its kept scores stand far apart (the
+``score_gap`` and ``cut_gap`` each golden records).
+
+A golden records, for each frame and person: the box, the keypoints
+``(y, x, conf)``, and for each joint the argmax cell, the 3x3 heatmap
+neighbourhood around it, the channel's mean, L2 norm and max magnitude,
+the argmax margin over the runner-up and the two neighbour differences
+that set the subpixel shift; for the detector configs the detector's
+rows. ``compare`` holds a run against a golden with the limits below,
+written once here for the CPU test (``tests/test_torch_goldens.py``) and
+the card (``chip_smoke.py`` phase 11).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+GOLDEN_DIR = os.path.join(HERE, 'goldens')
+JOINTS = 17
+
+# The limits (relative ones are fractions of the golden channel's max
+# |value|). f32 on the CPU is the port's plain path: the house tolerance
+# (tests/test_torch_single.py). f32 on the card has the kernels on:
+# phase 3's limit for the same depth. Boxes and decisive keypoints to
+# 1e-3 px, the gate of scripts/validate_goldens.py.
+LIMITS = {'cpu': {'heatmap': 2e-4, 'box_px': 1e-3, 'keypoint_px': 1e-3},
+          'card': {'heatmap': 1e-3, 'box_px': 1e-3, 'keypoint_px': 1e-3}}
+# a joint is decisive where its argmax margin and both neighbour
+# differences exceed this many heatmap limits
+DECISIVE_FACTOR = 10.0
+# the share of decisive joints each config's frame seed aims for
+DECISIVE_SHARE = 0.8
+# bf16 and int8: the heatmap distance to the JAX golden in the same dtype
+# may be this many times the JAX package's own distance between that
+# dtype and f32 (``jax_vs_f32``). By the triangle inequality two graphs
+# whose low-precision error is each no larger than the JAX package's lie
+# within twice that error of each other; the JAX package's own two int8
+# graphs (``use_fused_kernels`` True and False) lie farther apart than
+# either lies from f32, so a factor of 1 fails the reference itself.
+LOW_PRECISION_FACTOR = 2.0
+
+# The seeded weight files: (network kind, seed, gain of the default bound,
+# detector head edits). Detector edits: the objectness rows of each head's
+# weights times ``obj_gain``, ``obj_logit`` added to the objectness bias
+# and ``person_logit`` to the person class's.
+WEIGHTS = {
+    'pose_hrnet_w32': dict(kind='hrnet', c=32, seed=1032, gain=1.0),
+    'pose_hrnet_w48': dict(kind='hrnet', c=48, seed=1048, gain=1.0),
+    'pose_resnet_50': dict(kind='poseresnet', c=50, seed=1050,
+                           gain=6 ** 0.5),
+    'yolov3-tiny': dict(kind='darknet', tiny=True, seed=1003,
+                        gain=6 ** 0.5, obj_gain=10.0, obj_logit=-14.13,
+                        person_logit=4.0),
+    'yolov3': dict(kind='darknet', tiny=False, seed=1004, gain=1.7,
+                   obj_gain=30.0, obj_logit=-25.0, person_logit=4.0),
+    'yolov5m': dict(kind='yolov5', seed=1005, gain=2.2, obj_gain=300.0,
+                    obj_logit=-17.0, person_logit=4.0),
+}
+FILE_NAMES = {'pose_hrnet_w32': 'pose_hrnet_w32_256x192.pth',
+              'pose_hrnet_w48': 'pose_hrnet_w48_384x288.pth',
+              'pose_resnet_50': 'pose_resnet_50_256x192.pth',
+              'yolov3-tiny': 'yolov3-tiny.weights',
+              'yolov3': 'yolov3.weights', 'yolov5m': 'yolov5m.pt'}
+
+# The golden configs: BASELINE.json's five (scripts/validate_goldens.py)
+# and the scoreboard path. ``dtypes``: the goldens the generator writes;
+# ``cpu`` / ``card``: the dtypes each place checks, with the frames
+# (None: all) each dtype runs on.
+CONFIGS = {
+    'w32_256x192_single': dict(
+        pose='pose_hrnet_w32', c=32, res=(256, 192), detector=None,
+        frames=1, frame_seed=11, call='predict_one',
+        dtypes={'f32': None, 'bfloat16': None, 'int8': None},
+        cpu={'f32': None, 'bfloat16': None, 'int8': None},
+        card={'f32': None, 'bfloat16': None, 'int8': None}),
+    'res50_256x192_batch4': dict(
+        pose='pose_resnet_50', c=50, model_name='PoseResNet',
+        res=(256, 192), detector=None, frames=4, frame_seed=21,
+        call='predict', dtypes={'f32': None}, cpu={'f32': None},
+        card={'f32': None}),
+    'w48_384x288_batch16': dict(
+        pose='pose_hrnet_w48', c=48, res=(384, 288), detector=None,
+        frames=16, frame_seed=31, call='predict', max_batch_size=16,
+        dtypes={'f32': None, 'bfloat16': 2},
+        cpu={'f32': 2}, card={'f32': None, 'bfloat16': 2}),
+    'multiperson_yolov3tiny_w32': dict(
+        pose='pose_hrnet_w32', c=32, res=(256, 192), detector='yolov3-tiny',
+        frames=1, frame_seed=41, call='predict_one', dtypes={'f32': None},
+        cpu={'f32': None}, card={'f32': None}),
+    'video_yolov5m_w48': dict(
+        pose='pose_hrnet_w48', c=48, res=(384, 288), detector='yolov5m',
+        frames=8, frame_seed=51, call='stream', max_people=8,
+        dtypes={'f32': None}, cpu={'f32': None}, card={'f32': None}),
+    'scoreboard_yolov3_w48': dict(
+        pose='pose_hrnet_w48', c=48, res=(384, 288), detector='yolov3',
+        frames=1, frame_seed=61, call='predict_one', dtypes={'f32': None},
+        cpu={'f32': None}, card={'f32': None}),
+}
+
+
+# ---------------------------------------------------------------------------
+# weights
+# ---------------------------------------------------------------------------
+
+def _network(name: str) -> torch.nn.Module:
+    """The port's module for weight file ``name``, at torch's init."""
+    spec = WEIGHTS[name]
+    if spec['kind'] == 'hrnet':
+        from simple_hrnet_tpu_torch.models.hrnet import HRNet
+        return HRNet(spec['c'], JOINTS)
+    if spec['kind'] == 'poseresnet':
+        from simple_hrnet_tpu_torch.models.poseresnet import PoseResNet
+        return PoseResNet(spec['c'], JOINTS)
+    if spec['kind'] == 'darknet':
+        from simple_hrnet_tpu_torch.detectors import darknet
+        return darknet.Darknet(darknet.yolov3_tiny_blocks() if spec['tiny']
+                               else darknet.yolov3_blocks())
+    from simple_hrnet_tpu_torch.detectors import yolov5
+    return yolov5.YOLOv5Net(yolov5.build_config('yolov5m'))
+
+
+def _heads(net: torch.nn.Module) -> list:
+    """A detector's output convs (weight, bias), anchor-major channels."""
+    if hasattr(net, 'blocks'):
+        return [(m.weight, m.bias) for m in
+                (getattr(net, f'conv_{i}') for i, b in enumerate(net.blocks)
+                 if b['type'] == 'convolutional' and not b['bn'])]
+    return [(m.weight, m.bias) for m in net.model['24'].m]
+
+
+def seeded_network(name: str) -> torch.nn.Module:
+    """Weight file ``name``'s network with its numpy-drawn parameters."""
+    spec = WEIGHTS[name]
+    net = _network(name).eval()
+    rng = np.random.default_rng(spec['seed'])
+    modules = dict(net.named_modules())
+    with torch.no_grad():
+        for key, t in net.state_dict(keep_vars=True).items():
+            owner, _, leaf = key.rpartition('.')
+            m = modules[owner]
+            w = getattr(m, 'weight', None)
+            if isinstance(m, torch.nn.BatchNorm2d):
+                if leaf in ('weight', 'running_var'):
+                    t.fill_(1.0)
+                else:
+                    t.zero_()
+            elif leaf in ('weight', 'bias') and w is not None and w.dim() == 4:
+                bound = spec['gain'] / math.sqrt(w[0].numel())
+                t.copy_(torch.from_numpy(rng.uniform(
+                    -bound, bound, tuple(t.shape)).astype(np.float32)))
+            else:
+                raise ValueError(f'{name}: no draw rule for {key}')
+        if 'obj_gain' in spec:
+            for weight, bias in _heads(net):
+                weight.view(3, -1, *weight.shape[1:])[:, 4] *= \
+                    spec['obj_gain']
+                bias.view(3, -1)[:, 4] += spec['obj_logit']
+                bias.view(3, -1)[:, 5] += spec['person_logit']
+    return net
+
+
+def fingerprint(net: torch.nn.Module) -> str:
+    """sha256 over the little-endian bytes of every ``state_dict`` entry,
+    in order."""
+    h = hashlib.sha256()
+    for t in net.state_dict().values():
+        a = t.detach().cpu().contiguous().numpy()
+        h.update(a.astype(a.dtype.newbyteorder('<'), copy=False).tobytes())
+    return h.hexdigest()
+
+
+def write_weights(tmp: str, names=None) -> dict:
+    """Write the seeded files to ``tmp``: {name: (path, fingerprint)}."""
+    out = {}
+    for name in names or WEIGHTS:
+        net = seeded_network(name)
+        path = os.path.join(tmp, FILE_NAMES[name])
+        kind = WEIGHTS[name]['kind']
+        if kind == 'darknet':
+            from simple_hrnet_tpu_torch.detectors import darknet
+            darknet.save_darknet_weights(net, path)
+        elif kind == 'yolov5':
+            torch.save({'model': net}, path)
+        else:
+            torch.save(net.state_dict(), path)
+        out[name] = (path, fingerprint(net))
+    return out
+
+
+def config_weights(config: str) -> list:
+    cfg = CONFIGS[config]
+    return [cfg['pose']] + ([cfg['detector']] if cfg['detector'] else [])
+
+
+# ---------------------------------------------------------------------------
+# frames and facades
+# ---------------------------------------------------------------------------
+
+def smooth_frames(n: int, seed: int, h: int = 480, w: int = 640
+                  ) -> np.ndarray:
+    """Synthetic BGR uint8 frames: smooth blobs over noise (as
+    ``chip_smoke.smooth_frames``)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = rng.uniform(0, 60, (n, h, w, 3)).astype(np.float32)
+    for f in frames:
+        for _ in range(6):
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            r = rng.uniform(30, 120)
+            f += (rng.uniform(60, 190, 3) * np.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None])
+    return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+def config_frames(config: str, seed=None) -> np.ndarray:
+    cfg = CONFIGS[config]
+    return smooth_frames(cfg['frames'],
+                         cfg['frame_seed'] if seed is None else seed)
+
+
+def facade_kwargs(config: str, paths: dict, dtype: str) -> dict:
+    """The facade's arguments, the same for both packages."""
+    cfg = CONFIGS[config]
+    kw = dict(model_name=cfg.get('model_name', 'HRNet'),
+              resolution=cfg['res'], return_heatmaps=True,
+              return_bounding_boxes=True,
+              dtype=None if dtype == 'f32' else dtype)
+    if 'max_batch_size' in cfg:
+        kw['max_batch_size'] = cfg['max_batch_size']
+    det = cfg['detector']
+    if det is None:
+        kw['multiperson'] = False
+    elif det == 'yolov5m':
+        kw.update(yolo_version='v5', yolo_model_def=paths[det])
+    else:
+        kw.update(yolo_model_def=det, yolo_weights_path=paths[det])
+    return kw
+
+
+def port_facade(config: str, paths: dict, dtype: str = 'f32',
+                device: str = 'cpu', **extra):
+    from simple_hrnet_tpu_torch import SimpleHRNet
+    cfg = CONFIGS[config]
+    kw = facade_kwargs(config, paths, dtype)
+    kw.update(extra)
+    return SimpleHRNet(cfg['c'], JOINTS, paths[cfg['pose']], device=device,
+                       **kw)
+
+
+def run_facade(model, config: str, frames: np.ndarray) -> list:
+    """The config's call on ``frames``: per frame (heatmaps (P, J, h, w),
+    boxes (P, 4), keypoints (P, J, 3)) as float arrays."""
+    cfg = CONFIGS[config]
+    if cfg['call'] == 'predict_one':
+        outs = [model.predict(f) for f in frames]
+    elif cfg['call'] == 'stream':
+        outs = list(model.predict_stream(list(frames),
+                                         max_people=cfg['max_people']))
+    else:
+        hm, bx, pts = model.predict(frames)
+        if cfg['detector'] is None:   # a stack: keypoints (n, 1, J, 3)
+            outs = [(hm[i:i + 1], bx[i:i + 1], pts[i]) for i in
+                    range(len(frames))]
+        else:
+            outs = list(zip(hm, bx, pts))
+    return [tuple(np.asarray(a, np.float32) for a in o) for o in outs]
+
+
+def zero_chain(hrnet: torch.nn.Module, stage: str = 'stage3'):
+    """The controls' wrong input: the first module of ``stage`` puts out
+    zeros for its branch-0 chain (a hook on the plain modules, so on a
+    facade built with ``use_fused_kernels=False``). Returns the hook."""
+    return getattr(hrnet, stage)[0].branches[0].register_forward_hook(
+        lambda _m, _args, out: torch.zeros_like(out))
+
+
+def detector_rows(detector, frames: np.ndarray) -> list:
+    """Per frame the detector's valid rows (x1, y1, x2, y2, score), in its
+    score order."""
+    rgb = np.ascontiguousarray(frames[..., ::-1])
+    rows, valid = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                   for a in detector.detect_padded(rgb))
+    return [rows[i][valid[i]][:, :5] for i in range(len(frames))]
+
+
+# ---------------------------------------------------------------------------
+# goldens
+# ---------------------------------------------------------------------------
+
+def _f(a) -> list:
+    """float32 values as the shortest decimals that read back exactly."""
+    a = np.asarray(a, np.float32)
+    if a.ndim == 0:
+        return float(str(a))
+    return [_f(x) for x in a]
+
+
+def _neighbourhood(hm: np.ndarray, r: int, c: int) -> list:
+    """The 3x3 values around (r, c) of one (H, W) channel, row-major;
+    None outside the map."""
+    h, w = hm.shape
+    return [float(hm[y, x]) if 0 <= y < h and 0 <= x < w else None
+            for y in (r - 1, r, r + 1) for x in (c - 1, c, c + 1)]
+
+
+def summarize_person(hm: np.ndarray) -> dict:
+    """One person's (J, H, W) heatmaps as the golden records them."""
+    j, h, w = hm.shape
+    flat = hm.reshape(j, -1)
+    idx = flat.argmax(axis=1)
+    top2 = np.sort(flat, axis=1)[:, -2:]
+    cells, nbs, stats = [], [], []
+    for k in range(j):
+        r, c = int(idx[k] // w), int(idx[k] % w)
+        ch = hm[k]
+        dx = float(ch[r, c + 1] - ch[r, c - 1]) if 0 < c < w - 1 else None
+        dy = float(ch[r + 1, c] - ch[r - 1, c]) if 0 < r < h - 1 else None
+        cells.append([r, c])
+        nbs.append(_neighbourhood(ch, r, c))
+        stats.append([float(ch.mean(dtype=np.float64)),
+                      float(np.sqrt((ch.astype(np.float64) ** 2).sum())),
+                      float(np.abs(ch).max()),
+                      float(top2[k, 1] - top2[k, 0]), dx, dy])
+    return {'cell': cells,
+            'nb': [[None if v is None else _f(v) for v in n] for n in nbs],
+            'stats': [[None if v is None else _f(v) for v in s]
+                      for s in stats]}
+
+
+def summarize(outs: list, rows=None, cut_scores=None) -> list:
+    """Golden frame records from ``run_facade``'s outputs (and the
+    detector's rows; ``cut_scores``: per frame the score of the first
+    candidate past the people's cut, or the detector's threshold)."""
+    frames = []
+    for i, (hm, bx, pts) in enumerate(outs):
+        rec = {'people': int(pts.shape[0]), 'boxes': _f(bx),
+               'keypoints': _f(pts),
+               'joints': [summarize_person(h) for h in hm]}
+        if rows is not None:
+            kept = rows[i][:rec['people']]
+            rec['det'] = _f(kept)
+            s = kept[:, 4].astype(np.float64)
+            rec['score_gap'] = _f(np.diff(-s).min()) if len(s) > 1 else None
+            rec['cut_gap'] = _f(s.min() - cut_scores[i]) if len(s) else None
+        frames.append(rec)
+    return frames
+
+
+def load_golden(config: str) -> dict:
+    with open(os.path.join(GOLDEN_DIR, f'port_{config}.json')) as f:
+        return json.load(f)
+
+
+def decisive(stats: np.ndarray, limit: float) -> np.ndarray:
+    """Which joints (rows of golden ``stats``) are decisive at heatmap
+    limit ``limit``: margin and both neighbour differences (where the
+    neighbours exist) above ``DECISIVE_FACTOR`` limits of max."""
+    s = np.asarray([[np.nan if v is None else v for v in r] for r in stats],
+                   np.float64)
+    gate = DECISIVE_FACTOR * limit * s[:, 2]
+    ok = s[:, 3] > gate
+    for col in (4, 5):
+        ok &= np.isnan(s[:, col]) | (np.abs(s[:, col]) > gate)
+    return ok
+
+
+def decisive_share(frames: list, place: str) -> float:
+    limit = LIMITS[place]['heatmap']
+    flags = [decisive(p['stats'], limit) for f in frames for p in f['joints']]
+    return float(np.concatenate(flags).mean()) if flags else 0.0
+
+
+def _values(hm: np.ndarray, person: dict) -> np.ndarray:
+    """(J, 11): the 3x3 neighbourhood at the golden's cells, the channel
+    mean and its RMS (L2 over sqrt(H W)), from (J, H, W) heatmaps; NaN
+    where the golden has no neighbour."""
+    _, h, w = hm.shape
+    out = []
+    for k, (r, c) in enumerate(person['cell']):
+        ch = hm[k].astype(np.float64)
+        nb = _neighbourhood(hm[k], r, c)
+        out.append([np.nan if v is None else v for v in nb]
+                   + [ch.mean(), np.sqrt((ch ** 2).sum() / (h * w))])
+    return np.asarray(out, np.float64)
+
+
+def _golden_values(person: dict, hw: tuple) -> np.ndarray:
+    n = math.sqrt(hw[0] * hw[1])
+    return np.asarray([[np.nan if v is None else v for v in nb]
+                       + [st[0], st[1] / n]
+                       for nb, st in zip(person['nb'], person['stats'])],
+                      np.float64)
+
+
+def heatmap_distance(outs: list, frames: list) -> tuple:
+    """(max, mean) over every person and joint of |run - golden| over the
+    recorded values, each over the golden channel's max magnitude; and
+    the absolute (max, mean) differences."""
+    rel, ab = [], []
+    for (hm, _, _), f in zip(outs, frames):
+        for p, person in enumerate(f['joints']):
+            d = np.abs(_values(hm[p], person)
+                       - _golden_values(person, hm.shape[2:]))
+            scale = np.asarray([s[2] for s in person['stats']])[:, None]
+            rel.append((d / scale)[~np.isnan(d)])
+            ab.append(d[~np.isnan(d)])
+    if not rel:
+        return 0.0, 0.0, 0.0, 0.0
+    rel, ab = np.concatenate(rel), np.concatenate(ab)
+    return (float(rel.max()), float(rel.mean()), float(ab.max()),
+            float(ab.mean()))
+
+
+def compare(outs: list, golden: dict, dtype: str, place: str,
+            rows=None, quantum=None, frames=None) -> dict:
+    """Hold ``run_facade`` outputs (and the detector's ``rows``) against
+    ``golden``'s ``dtype`` entry, frames ``frames`` (a slice; None: all).
+    f32: same people in order, boxes and detector boxes within
+    ``box_px``, heatmap values within the place's limit of max, decisive
+    keypoints within ``keypoint_px`` and every confidence within the
+    heatmap limit. bf16 / int8: the heatmap distance at most the JAX
+    package's own distance between that dtype and f32 here
+    (``jax_vs_f32``); with ``quantum`` (int8 on the CPU) every value also
+    within 4 quanta and the mean within one. Returns the distances and
+    ``ok``; ``failures`` says which gates failed."""
+    lim = LIMITS[place]
+    entry = golden['dtypes'][dtype]
+    gframes = entry['frames'][frames or slice(None)]
+    out = {'config': golden['config'], 'dtype': dtype, 'place': place,
+           'frames': len(gframes), 'failures': []}
+    fails = out['failures']
+    if len(outs) != len(gframes):
+        fails.append(f'{len(outs)} frames against {len(gframes)}')
+        out['ok'] = False
+        return out
+    people = [int(o[2].shape[0]) for o in outs]
+    want = [f['people'] for f in gframes]
+    out['people'] = people
+    if people != want:
+        fails.append(f'people {people} against {want}')
+        out['ok'] = False
+        return out
+    box_err = max([float(np.abs(o[1] - np.asarray(f['boxes'])).max())
+                   for o, f in zip(outs, gframes) if f['people']] or [0.0])
+    out['box_err_px'] = box_err
+    if box_err > lim['box_px']:
+        fails.append(f'boxes differ by {box_err} px')
+    if rows is not None:
+        det = [float(np.abs(r[:f['people'], :4]
+                            - np.asarray(f['det'])[:, :4]).max())
+               for r, f in zip(rows, gframes) if f['people']]
+        out['det_box_err_px'] = max(det or [0.0])
+        if out['det_box_err_px'] > lim['box_px']:
+            fails.append(f'detector boxes differ by '
+                         f'{out["det_box_err_px"]} px')
+    hm_max, hm_mean, abs_max, abs_mean = heatmap_distance(outs, gframes)
+    out.update(heatmap_rel_max=hm_max, heatmap_rel_mean=hm_mean,
+               heatmap_abs_max=abs_max, heatmap_abs_mean=abs_mean)
+    xy, conf, dec, near = [], [], [], []
+    for (_, _, pts), f in zip(outs, gframes):
+        g = np.asarray(f['keypoints'], np.float64).reshape(pts.shape)
+        for p, person in enumerate(f['joints']):
+            d = decisive(person['stats'], lim['heatmap'])
+            dxy = np.abs(pts[p, :, :2] - g[p, :, :2]).max(axis=1)
+            xy.append(dxy[d])
+            near.append(dxy <= 1.0)
+            scale = np.asarray([s[2] for s in person['stats']])
+            conf.append(np.abs(pts[p, :, 2] - g[p, :, 2]) / scale)
+            dec.append(d)
+    dec = np.concatenate(dec) if dec else np.zeros(0, bool)
+    out.update(joints=int(dec.size), decisive=int(dec.sum()),
+               within_1px=float(np.concatenate(near).mean()) if near
+               else 1.0)
+    if dtype == 'f32':
+        out['keypoint_err_px'] = float(np.concatenate(xy).max()) \
+            if dec.any() else 0.0
+        out['conf_rel_err'] = float(np.concatenate(conf).max()) \
+            if conf else 0.0
+        if hm_max > lim['heatmap']:
+            fails.append(f'heatmaps differ by {hm_max} of max '
+                         f'> {lim["heatmap"]}')
+        if out['keypoint_err_px'] > lim['keypoint_px']:
+            fails.append(f'decisive keypoints differ by '
+                         f'{out["keypoint_err_px"]} px')
+        if out['conf_rel_err'] > lim['heatmap']:
+            fails.append(f'confidences differ by {out["conf_rel_err"]} of '
+                         f'max')
+    else:
+        bound = LOW_PRECISION_FACTOR * entry['jax_vs_f32']
+        out['bound'] = bound
+        if hm_max > bound:
+            fails.append(f'heatmap distance {hm_max} > {bound}, '
+                         f'{LOW_PRECISION_FACTOR} times the JAX package\'s '
+                         f'own {dtype}-to-f32 distance')
+        if quantum is not None:
+            out['quanta_max'] = abs_max / quantum
+            out['quanta_mean'] = abs_mean / quantum
+            if abs_max > 4 * quantum or abs_mean > quantum:
+                fails.append(f'int8 heatmaps differ by {abs_max / quantum} '
+                             f'quanta (mean {abs_mean / quantum})')
+    out['ok'] = not fails
+    return out
+
+
+def report(r: dict) -> str:
+    """One line of a comparison's distances."""
+    keys = ('people', 'box_err_px', 'det_box_err_px', 'heatmap_rel_max',
+            'heatmap_rel_mean', 'bound', 'keypoint_err_px', 'conf_rel_err',
+            'decisive', 'joints', 'within_1px', 'quanta_max', 'quanta_mean')
+    parts = [f'{k}={r[k]:.3e}' if isinstance(r[k], float) else f'{k}={r[k]}'
+             for k in keys if k in r]
+    return (f'[{r["config"]} {r["dtype"]} {r["place"]}] '
+            f'{"ok" if r["ok"] else "FAIL " + "; ".join(r["failures"])}: '
+            + ' '.join(parts))
+
+
+# ---------------------------------------------------------------------------
+# the generator (JAX, on the CPU)
+# ---------------------------------------------------------------------------
+
+def _jax_commit() -> str:
+    try:
+        return subprocess.run(
+            ['git', 'log', '-1', '--format=%H', '--', 'simple_hrnet_tpu'],
+            cwd=REPO, capture_output=True, text=True,
+            timeout=30).stdout.strip() or 'unknown'
+    except OSError:
+        return 'unknown'
+
+
+def _jax_cut_scores(config, paths, frames, rows, jax_facade):
+    """Per frame the score of the first candidate past the people's cut:
+    the (people+1)-th row of a detector with a larger cap where the cut
+    is a cap, else the detector's threshold."""
+    cfg = CONFIGS[config]
+    cap = cfg.get('max_people', jax_facade.detector.max_detections)
+    thresh = jax_facade.detector.conf_thres
+    if not any(len(r) >= cap for r in rows):
+        return [thresh] * len(rows)
+    if len(rows[0]) >= jax_facade.detector.max_detections:
+        from simple_hrnet_tpu.detectors.yolov3 import YOLOv3
+        wide = YOLOv3(model_def=cfg['detector'],
+                      weights_path=paths[cfg['detector']],
+                      max_detections=2 * cap)
+        rows = detector_rows(wide, frames)
+    return [float(r[cap, 4]) if len(r) > cap else thresh for r in rows]
+
+
+def generate(config: str, paths: dict, fps: dict, commit: str,
+             seed=None) -> dict:
+    """The golden of ``config`` from the JAX facade (CPU, x64 for the
+    PIL-exact crops, as the port's tests run it)."""
+    import jax
+    from simple_hrnet_tpu import SimpleHRNet as JaxSimpleHRNet
+
+    cfg = CONFIGS[config]
+    frames = config_frames(config, seed)
+    golden = {'config': config, 'jax_commit': commit,
+              'frame_seed': cfg['frame_seed'] if seed is None else seed,
+              'frame_shape': list(frames.shape),
+              'weights': {n: {'file': FILE_NAMES[n],
+                              'seed': WEIGHTS[n]['seed'], 'sha256': fps[n]}
+                          for n in config_weights(config)},
+              'limits': LIMITS, 'decisive_factor': DECISIVE_FACTOR,
+              'dtypes': {}}
+    f32 = None
+    for dtype, n in cfg['dtypes'].items():
+        t0 = time.perf_counter()
+        model = JaxSimpleHRNet(cfg['c'], JOINTS, paths[cfg['pose']],
+                               **facade_kwargs(config, paths, dtype))
+        fr = frames[:n] if n else frames
+        with jax.enable_x64(True):
+            outs = run_facade(model, config, fr)
+            rows = cuts = None
+            if cfg['detector']:
+                rows = detector_rows(model.detector, fr)
+                cuts = _jax_cut_scores(config, paths, fr, rows, model)
+        entry = {'frames': summarize(outs, rows, cuts)}
+        if dtype == 'f32':
+            f32 = entry
+            entry['decisive_share'] = {p: decisive_share(entry['frames'], p)
+                                       for p in LIMITS}
+        else:
+            d = compare(outs, {'config': config, 'dtypes': {
+                'f32': {'frames': f32['frames'][:len(fr)]}}}, 'f32', 'cpu')
+            entry['jax_vs_f32'] = d['heatmap_rel_max']
+            entry['jax_vs_f32_mean'] = d['heatmap_rel_mean']
+            entry['jax_vs_f32_within_1px'] = d['within_1px']
+        golden['dtypes'][dtype] = entry
+        print(f'[{config} {dtype}] {len(fr)} frames, people '
+              f'{[f["people"] for f in entry["frames"]]}, '
+              f'{time.perf_counter() - t0:.1f} s; '
+              + (f'decisive share {entry["decisive_share"]}'
+                 if dtype == 'f32' else
+                 f'JAX {dtype} vs f32 {entry["jax_vs_f32"]:.3e} of max, '
+                 f'{entry["jax_vs_f32_within_1px"]:.3f} within 1 px'),
+              flush=True)
+        if dtype == 'f32' and min(entry['decisive_share'].values()) < \
+                DECISIVE_SHARE:
+            print(f'[{config}] fewer than {DECISIVE_SHARE:.0%} of the '
+                  f'joints are decisive at some limit: --seed-search K '
+                  f'tries other frame seeds', flush=True)
+    return golden
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--only', nargs='*', default=None,
+                    help='configs to regenerate (default: all)')
+    ap.add_argument('--seed-search', type=int, default=0, metavar='K',
+                    help='print each config\'s decisive share at its frame '
+                    'seed and the next K-1 seeds; write nothing')
+    args = ap.parse_args(argv)
+
+    # the JAX facade's Pallas kernels run (interpreted), as on its TPU and
+    # as the JAX package's kernel tests run them, not their XLA fallbacks
+    os.environ['SHT_PALLAS_CPU_INTERPRET'] = '1'
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    commit = _jax_commit()
+    names = args.only or list(CONFIGS)
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        need = sorted({w for c in names for w in config_weights(c)})
+        files = write_weights(tmp, need)
+        paths = {k: v[0] for k, v in files.items()}
+        fps = {k: v[1] for k, v in files.items()}
+        for config in names:
+            if args.seed_search:
+                base = CONFIGS[config]['frame_seed']
+                for s in range(base, base + args.seed_search):
+                    g = generate(config, paths, fps, commit, seed=s)
+                    print(f'[{config}] frame seed {s}: decisive share '
+                          f'{g["dtypes"]["f32"]["decisive_share"]}')
+                continue
+            golden = generate(config, paths, fps, commit)
+            path = os.path.join(GOLDEN_DIR, f'port_{config}.json')
+            with open(path, 'w') as f:
+                json.dump(golden, f, separators=(',', ':'))
+                f.write('\n')
+            print(f'wrote {path} ({os.path.getsize(path)} bytes)',
+                  flush=True)
+    print(f'goldens: {time.perf_counter() - t_all:.1f} s', flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.path.insert(0, REPO)
+    sys.exit(main())
