@@ -92,22 +92,26 @@ Phases (any failure exits nonzero):
      call profiled; the single-person ``predict_stream`` at W48 bf16 after
      ``warmup`` over 128 frames (the 16 looped), dispatch guarded, timed
      and profiled as phase 5's modes;
-  8. the engine path (``utils/export.py``): four ``.torchpose`` engines
+  8. the engine path (``utils/export.py``): five ``.torchpose`` engines
      exported on the card from phase 4's seeded ``.pth`` files at batch 16
      (W48-384x288 f32 with the kernels and with the plain graph, W48 bf16
-     with the kernels, W32-256x192 int8 with the kernels), each export and
-     first load timed. Through ``SimpleHRNet(..., enable_tensorrt=True,
+     with the kernels, W32-256x192 int8 with the kernels, W32 bf16 with the
+     kernels, whose chain is the Winograd op), each export and first load
+     timed. Through ``SimpleHRNet(..., enable_tensorrt=True,
      multiperson=True)`` with the seeded YOLOv3-416, on the 8-frame stack in
      f32: the kernel engine against the eager kernel facade and the plain
      engine against ``use_fused_kernels=False`` (boxes equal, heatmaps
      within phase 3's limit, keypoints where the peak is clear), launch
      counts set to 0 just before each call and read just after (K1 once a
      detect chunk; the chain and K3 8 times an engine call, none in the
-     plain graph; every engine call at batch 16). The bf16 W48 and int8 W32
-     engines run ``predict`` on 1 and 8 frames, counted the same way, timed
-     in turn with the eager facade of the same path (call for call, one
-     process state) and the 8-frame call profiled, printed beside those
-     and phase 4's eager numbers;
+     plain graph; every engine call at batch 16). The bf16 W48, int8 W32
+     and bf16 W32 engines run ``predict`` on 1 and 8 frames, counted the
+     same way, each 8-frame answer read against the eager facade of its
+     path (the W32 bf16 one also held against that facade at the engine's
+     batch: boxes equal, heatmaps within phase 2's bf16 limit, keypoints
+     where the peak is clear), timed in turn with the eager facade (call
+     for call, one process state) and the 8-frame call profiled, printed
+     beside those and phase 4's eager numbers;
      a chunked ``predict_stream`` from the bf16 engine after ``warmup``
      runs as phase 5 runs its modes, dispatch guarded;
   9. the training path (``train/``) at the ``train_coco`` CLI's defaults,
@@ -173,7 +177,13 @@ Phases (any failure exits nonzero):
      (f32 heatmaps within 1e-3 of max, boxes and decisive keypoints within
      1e-3 px; bf16 and int8 within twice the JAX package's own distance
      to f32); two controls (other frames' golden, a zeroed chain in f32,
-     bf16 and int8) must fail; all five kernels must have run.
+     bf16 and int8) must fail; all five kernels must have run. Then the
+     int8 trace: the W32 single-person int8 facade built on the card and
+     on the CPU in this process, traced stage by stage
+     (``torch_goldens.int8_trace``), with the frames' difference in counts,
+     the calibration maps' in ulps, the first traced entry that departs,
+     and the card's golden distance rerun on the CPU's frame and then also
+     from the CPU's calibration map.
 
 Prints the build log, one JSON ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. The
@@ -2027,6 +2037,8 @@ ENGINES = (
      'basic_chain'),
     ('w32_int8_fused', 32, (256, 192), dict(fused=True, int8=True),
      'int8_chain'),
+    ('w32_bf16_fused', 32, (256, 192), dict(fused=True, half=True),
+     'wino_chain'),
 )
 # the f32 engines and the eager facade each must agree with: the fused one
 # with the kernel facade, the plain one with use_fused_kernels=False;
@@ -2037,7 +2049,18 @@ ENGINE_F32 = (('w48_f32_fused', True), ('w48_f32_plain', False))
 ENGINE_HM_TOL = 1e-3
 # the timed engines, each beside phase 4's eager path of its width and type
 ENGINE_TIMED = (('w48_bf16_fused', 'w48_bf16', 'bfloat16'),
-                ('w32_int8_fused', 'w32_int8', 'int8'))
+                ('w32_int8_fused', 'w32_int8', 'int8'),
+                ('w32_bf16_fused', 'w32_bf16', 'bfloat16'))
+# the low-precision engines held against the eager facade of their path
+# at the engine's batch (``max_batch_size=ENGINE_BATCH``) on the 8-frame
+# stack: boxes equal, clear keypoints, heatmaps within phase 2's bf16
+# kernel-vs-plain limit of max (the f32 engines equal their eager facades
+# bit for bit). Against the eager facade at its own batch (32) the
+# agreement of every timed engine is printed, not gated: there cuDNN's
+# bf16 convs take other algorithms, and the one-step flips they leave
+# carry through the network (1.26e-2 of max at W48, 1.95e-2 at W32 on an
+# NVIDIA H100 80GB HBM3 at 700 W, past this limit).
+ENGINE_CHECKED = {'w32_bf16_fused': TOL[torch.bfloat16]}
 ENGINE_REPS = {1: 5, 8: 5}
 
 
@@ -2123,51 +2146,80 @@ def check_engine_f32(paths, pths, weights, frames, counters):
     for name, fused in ENGINE_F32:
         _, c, res, _, chain = next(e for e in ENGINES if e[0] == name)
         model, load_s, nodes = load_engine_facade(name, paths, weights)
-        (hm, bx, pts), launches, calls = engine_predict(
+        got, launches, calls = engine_predict(
             f'phase 8 [{name}] f32', model, frames, counters, chain)
         del model
         ref = SimpleHRNet(c, 17, pths[c], resolution=res, multiperson=True,
                           yolo_model_def='yolov3', yolo_weights_path=weights,
                           return_heatmaps=True, return_bounding_boxes=True,
                           device='cuda', use_fused_kernels=fused)
-        rhm, rbx, rpts = ref.predict(frames)
+        want = ref.predict(frames)
         del ref
         torch.cuda.empty_cache()
-        if [b.shape for b in bx] != [b.shape for b in rbx] or \
-                not all(np.array_equal(a, b) for a, b in zip(bx, rbx)):
-            raise AssertionError(f'phase 8 [{name}]: boxes differ from the '
-                                 f'eager facade')
-        hm, rhm = np.concatenate(hm), np.concatenate(rhm)
-        pts, rpts = np.concatenate(pts), np.concatenate(rpts)
-        top = float(np.abs(rhm).max())
-        err = float(np.abs(hm - rhm).max())
-        if not np.isfinite(hm).all() or err > ENGINE_HM_TOL * top or \
-                hm.shape[0] == 0:
-            raise AssertionError(f'phase 8 [{name}]: heatmaps {err} ('
-                                 f'{err / top} of max) from the eager '
-                                 f'facade, {hm.shape[0]} people')
-        two = np.sort(rhm.reshape(*rhm.shape[:2], -1), axis=-1)[..., -2:]
-        clear = (two[..., 1] - two[..., 0]) > 4 * err
-        xy_err = float(np.abs(pts[clear][:, :2] - rpts[clear][:, :2]).max()) \
-            if clear.any() else 0.0
-        if xy_err > 1e-3 or not clear.any():
-            raise AssertionError(f'phase 8 [{name}]: keypoints differ by '
-                                 f'{xy_err} px ({int(clear.sum())} compared)')
+        agree = engine_agreement(f'phase 8 [{name}]', got, want,
+                                 ENGINE_HM_TOL)
         rec[name] = dict(load_s=load_s, graph_nodes=nodes,
-                         people=int(hm.shape[0]), engine_calls=calls,
-                         launches=launches, heatmap_err=err,
-                         heatmap_rel_err=err / top,
-                         keypoints_compared=int(clear.sum()),
-                         keypoints_left_out=int(clear.size - clear.sum()),
-                         keypoint_xy_err=xy_err)
+                         engine_calls=calls, launches=launches, **agree)
         runs[f'engine_{name}_8'] = launches
         print(f'phase 8 [{name}] f32 engine facade vs eager '
-              f'(use_fused_kernels={fused}), 8 frames: {hm.shape[0]} people,'
-              f' boxes equal, heatmaps {err:.3e} ({err / top:.3e} of max, '
-              f'tol {ENGINE_HM_TOL:.0e}), keypoints {int(clear.sum())} '
-              f'compared ({xy_err:.2e} px); {calls} engine calls, launches '
+              f'(use_fused_kernels={fused}), 8 frames: '
+              f'{agreement_line(agree)}; {calls} engine calls, launches '
               f'{launches}', flush=True)
     return runs, rec
+
+
+def engine_agreement(what, got, want, tol=None):
+    """An engine facade's 8-frame ``predict`` (heatmaps, boxes, keypoints)
+    against its eager facade's: the people and boxes, the heatmap distance
+    of max, and the keypoints where the heatmap peak clears its runner-up
+    by 4x that distance. With ``tol`` it fails unless the boxes are equal,
+    every heatmap is finite and within ``tol`` of max, and some keypoints
+    are clear and within 1e-3 px; without, it only reads. Returns the
+    readings."""
+    (hm, bx, pts), (rhm, rbx, rpts) = got, want
+    boxes_equal = [b.shape for b in bx] == [b.shape for b in rbx] and all(
+        np.array_equal(a, b) for a, b in zip(bx, rbx))
+    out = dict(boxes_equal=boxes_equal, heatmap_tol=tol)
+    fails = [] if boxes_equal else ['boxes differ from the eager facade']
+    if boxes_equal:
+        hm, rhm = np.concatenate(hm), np.concatenate(rhm)
+        pts, rpts = np.concatenate(pts), np.concatenate(rpts)
+        top = float(np.abs(rhm).max()) if rhm.size else 0.0
+        err = float(np.abs(hm - rhm).max()) if rhm.size else 0.0
+        two = np.sort(rhm.reshape(*rhm.shape[:2], -1), axis=-1)[..., -2:]
+        clear = (two[..., 1] - two[..., 0]) > 4 * err
+        xy_err = float(np.abs(pts[clear][:, :2] - rpts[clear][:, :2]
+                              ).max()) if clear.any() else 0.0
+        out.update(people=int(hm.shape[0]), heatmap_err=err,
+                   heatmap_rel_err=err / top if top else 0.0,
+                   keypoints_compared=int(clear.sum()),
+                   keypoints_left_out=int(clear.size - clear.sum()),
+                   keypoint_xy_err=xy_err)
+        if not np.isfinite(hm).all() or hm.shape[0] == 0 or (
+                tol is not None and err > tol * top):
+            fails.append(f'heatmaps {err} ({out["heatmap_rel_err"]} of max,'
+                         f' tol {tol}) from the eager facade, '
+                         f'{hm.shape[0]} people')
+        if xy_err > 1e-3 or not clear.any():
+            fails.append(f'keypoints differ by {xy_err} px '
+                         f'({int(clear.sum())} compared)')
+    out['failures'] = fails
+    if tol is not None and fails:
+        raise AssertionError(f'{what}: ' + '; '.join(fails))
+    return out
+
+
+def agreement_line(a):
+    if not a['boxes_equal']:
+        return 'boxes differ (not gated)'
+    tol = 'not gated' if a['heatmap_tol'] is None \
+        else f'tol {a["heatmap_tol"]:.3e}'
+    return (f'{a["people"]} people, boxes equal, heatmaps '
+            f'{a["heatmap_err"]:.3e} ({a["heatmap_rel_err"]:.3e} of max, '
+            f'{tol}), keypoints {a["keypoints_compared"]} compared '
+            f'({a["keypoint_xy_err"]:.2e} px)'
+            + (f'; outside: {"; ".join(a["failures"])}' if a['failures']
+               else ''))
 
 
 def time_engine(engine, paths, pths, weights, frames, counters, eager):
@@ -2185,17 +2237,33 @@ def time_engine(engine, paths, pths, weights, frames, counters, eager):
     runs, calls = {}, {}
     for n in (1, 8):
         arg = frames[0] if n == 1 else frames
-        _, runs[f'engine_{name}_{n}'], calls[n] = engine_predict(
+        got, runs[f'engine_{name}_{n}'], calls[n] = engine_predict(
             f'phase 8 [{name}] {n} frames', model, arg, counters, chain)
     ref = SimpleHRNet(c, 17, pths[c], resolution=res, multiperson=True,
                       yolo_model_def='yolov3', yolo_weights_path=weights,
+                      return_heatmaps=True, return_bounding_boxes=True,
                       dtype=dtype, device='cuda')
     forwards = []
     hook = ref.model.register_forward_pre_hook(
         lambda _m, args: forwards.append(args[0].shape[0]))
-    ref.predict(frames)
+    want = ref.predict(frames)
     hook.remove()
-    model.return_heatmaps = model.return_bounding_boxes = False
+    agree = {'eager': engine_agreement(f'phase 8 [{name}]', got, want)}
+    if name in ENGINE_CHECKED:
+        same = SimpleHRNet(c, 17, pths[c], resolution=res, multiperson=True,
+                           yolo_model_def='yolov3',
+                           yolo_weights_path=weights, return_heatmaps=True,
+                           return_bounding_boxes=True, dtype=dtype,
+                           max_batch_size=ENGINE_BATCH, device='cuda')
+        agree['eager_at_engine_batch'] = engine_agreement(
+            f'phase 8 [{name}] against eager at batch {ENGINE_BATCH}', got,
+            same.predict(frames), ENGINE_CHECKED[name])
+        del same
+    for k, a in agree.items():
+        print(f'phase 8 [{name}] engine facade vs {k}, 8 frames: '
+              f'{agreement_line(a)}', flush=True)
+    for m in (model, ref):
+        m.return_heatmaps = m.return_bounding_boxes = False
     t, te = {}, {}
     for n in (1, 8):
         arg = frames[0] if n == 1 else frames
@@ -2229,7 +2297,7 @@ def time_engine(engine, paths, pths, weights, frames, counters, eager):
                       eager_pose_forwards_stack8=forwards,
                       stack8_device_busy_ms=busy, stack8_top_device_ms=top,
                       stack8_port_kernels=port, stack8_idle_share=idle,
-                      eager=eager)
+                      vs_eager=agree, eager=eager)
 
 
 def run_engine_stream(paths, weights, counters):
@@ -3249,6 +3317,95 @@ def golden_controls(G, paths, w48_outs):
     return rec
 
 
+# C9: the config whose int8 answer the card's and the CPU's facades are
+# traced on, stage by stage
+TRACE_CONFIG = 'w32_256x192_single'
+# the rows of each trace comparison printed from its first departure on
+TRACE_ROWS = 12
+
+
+def _trace_rows(d):
+    """The differing rows of a trace comparison from its first departure
+    on (TRACE_ROWS of them), and each stage module's high-resolution fuse
+    output (K3's) and the heatmaps."""
+    rows = d['rows']
+    i = rows.index(d['first']) if d['first'] is not None else len(rows)
+    head = [r for r in rows[i:] if r['differ']][:TRACE_ROWS]
+    fuses = [r for r in rows if r['name'].endswith(':fuse0') or
+             r['name'] == 'heatmaps']
+    return head, fuses
+
+
+def _print_trace(G, label, d):
+    head, fuses = _trace_rows(d)
+    print(f'phase 11 int8 trace [{label}]: {G.departure_line(d)}',
+          flush=True)
+    for r in head + fuses:
+        print(f'    {r["name"]} ({r["kind"]}): {r["differ"]} of '
+              f'{r["elements"]} differ, largest {r["max_diff"]:.3e} '
+              f'{r["unit"]}', flush=True)
+    return dict(first=d['first'], departing=head, entries=len(d['rows']),
+                entries_differing=sum(1 for r in d['rows'] if r['differ']))
+
+
+def trace_int8(G, paths, golden):
+    """C9: where the card's int8 answer departs from the CPU's. The
+    TRACE_CONFIG facade in int8 is built on the card and on the CPU in
+    this process, on the golden's weights and frame, and traced
+    (``torch_goldens.int8_trace``); printed: whether the frames the pose
+    model receives differ and by how many counts, the calibration maps'
+    largest distance in ulps and how many convs differ, and the first
+    traced entry that departs. Then the card facade runs again (a) on the
+    CPU's frame and (b) rebuilt from the CPU's calibration map as well
+    (the same ``quantize_folded`` and ``prepare_inference`` calls), each
+    with its distance to the golden and (b) with its own first
+    departure. Diagnosis only: the card's gates are ``run_golden``'s."""
+    t0 = time.perf_counter()
+    frames = G.config_frames(TRACE_CONFIG)
+    amax, traces, dist = {}, {}, {}
+    for dev in ('cuda', 'cpu'):
+        amax[dev] = {}
+        with G.int8_calibration(record=amax[dev]):
+            model = G.port_facade(TRACE_CONFIG, paths, 'int8', device=dev)
+        traces[dev], outs = G.int8_trace(model, frames)
+        dist[dev] = G.compare(outs, golden, 'int8', 'card')[
+            'heatmap_rel_max']
+        if dev == 'cuda':
+            card = model
+    cpu = traces['cpu']
+    d = G.first_departure(traces['cuda'], cpu)
+    frame = d['rows'][0]
+    a = G.amax_departure(amax['cuda'], amax['cpu'])
+    _, outs = G.int8_trace(card, frames, inject=cpu['input'])
+    dist['a_cpu_frame'] = G.compare(outs, golden, 'int8', 'card')[
+        'heatmap_rel_max']
+    del card
+    with G.int8_calibration(replace=amax['cpu']):
+        model = G.port_facade(TRACE_CONFIG, paths, 'int8', device='cuda')
+    trace_b, outs = G.int8_trace(model, frames, inject=cpu['input'])
+    dist['b_cpu_frame_amax'] = G.compare(outs, golden, 'int8', 'card')[
+        'heatmap_rel_max']
+    d_b = G.first_departure(trace_b, cpu)
+    del model
+    torch.cuda.empty_cache()
+    print(f'phase 11 int8 trace [{TRACE_CONFIG}]: frames the pose model '
+          f'receives: {frame["differ"]} of {frame["elements"]} values '
+          f'differ (largest {frame["max_diff"]:.0f} counts); calibration '
+          f'amax: {a["differ"]} of {a["keys"]} convs differ, largest '
+          f'{a["max_ulps"]} ulps ({a["worst"]}); golden distance (of max): '
+          f'card {dist["cuda"]:.4e}, CPU {dist["cpu"]:.4e}, (a) card on the '
+          f'CPU\'s frame {dist["a_cpu_frame"]:.4e}, (b) and the CPU\'s amax '
+          f'{dist["b_cpu_frame_amax"]:.4e}', flush=True)
+    rec = dict(config=TRACE_CONFIG, frame_values_differ=frame['differ'],
+               frame_max_counts=frame['max_diff'], amax=a, distance=dist,
+               card_vs_cpu=_print_trace(G, 'card vs CPU', d),
+               b_vs_cpu=_print_trace(G, '(b) card with the CPU\'s frame '
+                                     'and amax vs CPU', d_b),
+               seconds=time.perf_counter() - t0)
+    print(f'phase 11 int8 trace: {rec["seconds"]:.1f} s', flush=True)
+    return rec
+
+
 def run_goldens_phase(counters):
     """Phase 11 (see the module docstring). Returns its record and the
     launches of each config's run."""
@@ -3282,6 +3439,7 @@ def run_goldens_phase(counters):
                 if (config, dtype) == ('w48_384x288_batch16', 'f32'):
                     w48_outs = outs
         summary['controls'] = golden_controls(G, paths, w48_outs)
+        summary['int8_trace'] = trace_int8(G, paths, goldens[TRACE_CONFIG])
     totals = {k: sum(l[k] for l in runs.values()) for k in counters}
     if not all(totals.values()):
         raise AssertionError(f'phase 11: a kernel did not run against the '

@@ -138,7 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
                              'torchrun --nproc_per_node=N, one process a '
                              'device')
     parser.add_argument('--use_grouped_trunk', action='store_true',
-                        help='the TPU grouped trunk: not ported (raises)')
+                        help='the JAX package\'s grouped trunk (a TPU '
+                             'layout): the same function, so the port '
+                             'trains its plain trunk; batch_size must be '
+                             'divisible by min(4, max(2, 128 // model_c))')
     parser.add_argument('--dtype', type=str, default=None,
                         choices=[None, 'bfloat16', 'float32'],
                         help='bfloat16 = mixed-precision step '

@@ -107,10 +107,6 @@ class Train:
                  device_targets: bool = False,
                  device=None):
         steps_mod.check_train_mesh(mesh)
-        if use_grouped_trunk:
-            raise NotImplementedError(
-                'use_grouped_trunk is the TPU 128-lane grouped trunk, which '
-                'the port does not carry (ROADMAP queue A)')
         self.mesh = mesh
         self.device = mesh.devices[0] if mesh is not None \
             else resolve_device(device)
@@ -150,6 +146,17 @@ class Train:
             if self.summary_writer is not None:
                 self.summary_writer.add_text('parameters', str(parameters))
 
+        if use_grouped_trunk and model_name in ('HRNet', 'hrnet'):
+            # the JAX package packs ``group`` images of the batch
+            # block-diagonally on the channels, with BN statistics pooled
+            # over the whole batch (its train/grouped.py): a layout for the
+            # TPU's 128 lanes that computes the plain trunk's function.
+            # The port keeps its batch rule and trains the plain trunk.
+            group = min(4, max(2, 128 // model_c))
+            if batch_size % group:
+                raise ValueError(
+                    f'use_grouped_trunk needs batch_size divisible by '
+                    f'{group} (got {batch_size})')
         self.model = build_model(model_name, model_c, model_nof_joints, seed,
                                  self.device)
         self.loss_fn = losses_mod.get_loss(loss)

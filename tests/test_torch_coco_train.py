@@ -36,6 +36,8 @@ from simple_hrnet_tpu.utils import checkpoint as JCkpt
 from simple_hrnet_tpu_torch.cli import train_coco as TCli
 from simple_hrnet_tpu_torch.data import coco as TCOCO
 from simple_hrnet_tpu_torch.data import loader as TLoader
+from simple_hrnet_tpu_torch.models import convert as TC
+from simple_hrnet_tpu_torch.models import hrnet as TH
 from simple_hrnet_tpu_torch.parallel import make_mesh
 from simple_hrnet_tpu_torch.train.test import Test as TTest
 from simple_hrnet_tpu_torch.train import trainer as TTrainer
@@ -264,17 +266,24 @@ def test_train_coco_cli_one_epoch(coco_root, tmp_path):
 
 
 def test_unported_options_raise(coco_root, tmp_path):
-    """The TPU grouped trunk stays unported; a training mesh over two
-    local devices and ``--n_devices 2`` without a launcher raise, naming
-    the one-process-a-device launch line."""
+    """``use_grouped_trunk`` with a batch its group (4 at W4) does not
+    divide raises the JAX trainer's ``ValueError``, word for word; a
+    training mesh over two local devices and ``--n_devices 2`` without a
+    launcher raise, naming the one-process-a-device launch line."""
     ds = _ds(TCOCO, coco_root, is_train=False)
     kw = _trainer_kw(coco_root, str(tmp_path), device='cpu')
     with pytest.raises(ValueError, match='torchrun --nproc_per_node=2'):
         TTrainer.Train(ds_train=ds, ds_val=ds,
                        **dict(kw, mesh=make_mesh(2, device='cpu')))
-    with pytest.raises(NotImplementedError, match='grouped'):
-        TTrainer.Train(ds_train=ds, ds_val=ds,
-                       **dict(kw, use_grouped_trunk=True))
+    grouped = dict(kw, model_name='HRNet', model_c=4, batch_size=6,
+                   use_grouped_trunk=True)
+    with pytest.raises(ValueError) as want:
+        JTrainer.Train(ds_train=ds, ds_val=ds, **{
+            k: v for k, v in grouped.items() if k != 'device'})
+    with pytest.raises(ValueError) as got:
+        TTrainer.Train(ds_train=ds, ds_val=ds, **grouped)
+    assert str(got.value) == str(want.value) == (
+        'use_grouped_trunk needs batch_size divisible by 4 (got 6)')
     with pytest.raises(ValueError, match='torchrun --nproc_per_node=2'):
         TCli.main('x', n_devices=2, coco_root_path=coco_root)
     if not torch.cuda.is_available():
@@ -284,3 +293,71 @@ def test_unported_options_raise(coco_root, tmp_path):
                            **dict(kw, device=None))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TTest(ds, model_c=4)
+
+
+def test_grouped_trunk_step_matches_jax_grouped_forward(tmp_path):
+    """One step of ``Train(use_grouped_trunk=True)`` (HRNet-W4, 64x64,
+    batch 4, group 4, Adam) from seeded weights: its train-mode
+    heatmaps and every BN's batch mean and variance against the JAX
+    package's grouped trunk (``train/grouped.py`` ``make_apply``) on the
+    same batch, at ``tests/test_train_grouped.py``'s tolerances (heatmaps
+    and variances atol 1e-3, rtol 1e-4; means atol 1e-4), the loss within
+    1e-4 relative, and the weights stepped. The JAX grouped step itself
+    compiles for about 100 s on a CPU host, so its forward alone is
+    compiled, at XLA's backend optimization level 0 (the same graph)."""
+    from simple_hrnet_tpu.train import grouped as JG
+    from simple_hrnet_tpu.train import losses as JLoss
+
+    net = TH.init(4, 17, seed=5)
+    pre = str(tmp_path / 'pre.pth')
+    torch.save(net.state_dict(), pre)
+    tree = TC.to_jax_params(net.state_dict())
+    rng = np.random.default_rng(5)
+    batch = {'image': rng.standard_normal((4, RES, RES, 3)).astype(
+                 np.float32),
+             'target': rng.uniform(0, 1, (4, RES // 4, RES // 4, 17)
+                                   ).astype(np.float32),
+             'target_weight': np.ones((4, 17, 1), np.float32)}
+    def grouped(params, image):
+        stats = {}
+        return JG.make_apply(4)(params, image, train=True, stats=stats), \
+            stats
+
+    jout, jstats = jax.jit(grouped).lower(tree, batch['image']).compile(
+        compiler_options={'xla_backend_optimization_level': 0})(
+            tree, batch['image'])
+    jloss = float(JLoss.joints_mse_loss(jout, batch['target'],
+                                        batch['target_weight']))
+
+    t = TTrainer.Train(ds_train=[0] * 4, ds_val=[0] * 4, **_trainer_kw(
+        None, str(tmp_path), model_name='HRNet', model_c=4, optimizer='Adam',
+        pretrained_weight_path=pre, use_grouped_trunk=True, device='cpu'))
+    before = {k: v.clone() for k, v in t.model.state_dict().items()}
+    stats, hooks = {}, []
+
+    def record(name):
+        def hook(_m, args):
+            x = args[0].detach().float()
+            stats[name] = (x.mean(dim=(0, 2, 3)),
+                           x.var(dim=(0, 2, 3), unbiased=False))
+        return hook
+
+    for name, m in t.model.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            hooks.append(m.register_forward_pre_hook(record(name)))
+    loss, out = t._train_step(batch)
+    for h in hooks:
+        h.remove()
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-3,
+                               rtol=1e-4)
+    assert float(loss) == pytest.approx(jloss, rel=1e-4)
+    assert stats.keys() == jstats.keys()
+    for name, (mean, var) in stats.items():
+        jmean, jvar, _ = jstats[name]
+        np.testing.assert_allclose(mean.numpy(), np.asarray(jmean),
+                                   atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-3,
+                                   rtol=1e-4, err_msg=name)
+    after = t.model.state_dict()
+    assert not torch.equal(after['final_layer.weight'],
+                           before['final_layer.weight'])

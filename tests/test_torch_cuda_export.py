@@ -34,12 +34,16 @@ COUNTERS = {'basic_chain': TB.basic_chain, 'wino_chain': TW.wino_chain,
 @pytest.fixture(scope='module')
 def engines(tmp_path_factory):
     """A W16 checkpoint and its engines: f32 fused on the card and on the
-    CPU, int8 fused on the card."""
+    CPU, int8 fused on the card; and a W32 bf16 fused engine on the card,
+    the width whose bf16 chain is the Winograd kernel (branch 0 is 16x16,
+    H even)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     d = tmp_path_factory.mktemp('engines')
     pth = str(d / 'w16.pth')
     torch.save(TH.init(16, 17, seed=0).state_dict(), pth)
+    pth32 = str(d / 'w32.pth')
+    torch.save(TH.init(32, 17, seed=0).state_dict(), pth32)
     kw = dict(c=16, resolution=RES, batch_size=BATCH, fused=True)
     return {'pth': pth,
             'cuda': TE.export_engine(str(d / 'cuda.torchpose'), pth,
@@ -47,7 +51,10 @@ def engines(tmp_path_factory):
             'cpu': TE.export_engine(str(d / 'cpu.torchpose'), pth,
                                     device='cpu', **kw),
             'int8': TE.export_engine(str(d / 'int8.torchpose'), pth,
-                                     device='cuda', int8=True, **kw)}
+                                     device='cuda', int8=True, **kw),
+            'w32_bf16': TE.export_engine(str(d / 'w32_bf16.torchpose'),
+                                         pth32, device='cuda',
+                                         **dict(kw, c=32, half=True))}
 
 
 def _x(seed=0):
@@ -83,7 +90,8 @@ def test_card_engine_reloads_and_matches_eager(engines):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('name, chain', [('cuda', 'basic_chain'),
-                                         ('int8', 'int8_chain')])
+                                         ('int8', 'int8_chain'),
+                                         ('w32_bf16', 'wino_chain')])
 def test_exported_program_counts_launches(engines, name, chain):
     """Every stage module's chain and fuse run from the exported graph: 8
     launches each per engine call, no other chain."""

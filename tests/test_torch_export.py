@@ -3,8 +3,9 @@ package's (``.jaxpose``), on the CPU, from the same ``.npz`` checkpoints.
 
 Tolerances: f32 heatmaps 2e-4 (the house tolerance), decoded keypoint
 positions 1e-4 px. A ``fused=True`` engine must hold the chain and fuse
-custom ops in its exported graph, a ``fused=False`` one none. The int8
-engine is in ``test_torch_export_int8.py``.
+custom ops in its exported graph, a ``fused=False`` one none; a W32 bf16
+one the Winograd chain op, with heatmaps equal to the eager model's. The
+int8 engine is in ``test_torch_export_int8.py``.
 """
 
 import numpy as np
@@ -22,6 +23,8 @@ from simple_hrnet_tpu.utils import export as JE
 from simple_hrnet_tpu_torch import SimpleHRNet
 from simple_hrnet_tpu_torch.models import hrnet as TH
 from simple_hrnet_tpu_torch.models import poseresnet as TP
+from simple_hrnet_tpu_torch.models.convert import load_into
+from simple_hrnet_tpu_torch.utils import checkpoint as TCkpt
 from simple_hrnet_tpu_torch.utils import export as TE
 
 from test_torch_api import _TwoProcessMesh
@@ -95,6 +98,32 @@ def test_fused_engine_holds_the_kernel_ops(npz):
         np.float32)
     np.testing.assert_allclose(teng(torch.from_numpy(x)).numpy(),
                                np.asarray(jeng(x)), atol=2e-4, rtol=2e-4)
+
+
+def test_w32_bf16_engine_holds_the_winograd_chain(tmp_path):
+    """A W32 bf16 ``fused=True`` engine, the width at which the bf16 chain
+    is the Winograd op (branch 0 16x16 at 64x64, H even): its graph calls
+    ``sht::wino_chain`` and the fuse 8 times each and never the basic
+    chain, and its heatmaps equal the port's eager bf16 model's bit for
+    bit (both run the ops' plain versions on the CPU)."""
+    pth = str(tmp_path / 'w32.pth')
+    torch.save(TH.init(32, 17, seed=2).state_dict(), pth)
+    eng = TE.Engine(TE.export_engine(
+        str(tmp_path / 'w32_bf16.torchpose'), pth, c=32, resolution=RES,
+        batch_size=2, half=True, fused=True, device='cpu'), device='cpu')
+    targets = [str(n.target) for n in eng.program.graph.nodes]
+    assert targets.count('sht.wino_chain.default') == 8
+    assert targets.count('sht.fuse_up.default') == 8
+    assert 'sht.basic_chain.default' not in targets
+    model = TH.prepare_inference(load_into(TH.HRNet(32, 17),
+                                           TCkpt.load(pth)), torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, *RES, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+    got = eng(x)
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 17)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_facade_engine_matches_jax_facade(npz, w8_engines):

@@ -39,6 +39,7 @@ the card (``chip_smoke.py`` phase 11).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -550,6 +551,187 @@ def report(r: dict) -> str:
     return (f'[{r["config"]} {r["dtype"]} {r["place"]}] '
             f'{"ok" if r["ok"] else "FAIL " + "; ".join(r["failures"])}: '
             + ' '.join(parts))
+
+
+# ---------------------------------------------------------------------------
+# the int8 trace: where two runs of one int8 facade part
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def int8_calibration(record=None, replace=None):
+    """Inside, every port facade built with ``dtype='int8'`` copies its
+    calibration map (module path -> input amax, ``api._calibrate_int8``)
+    into the dict ``record``, or takes the map ``replace`` instead of
+    calibrating; the rest of its build (``quantize_folded``,
+    ``prepare_inference``) is unchanged."""
+    from simple_hrnet_tpu_torch.api import SimpleHRNet
+    real = SimpleHRNet._calibrate_int8
+
+    def calibrate(self, model):
+        amax = dict(replace) if replace is not None else real(self, model)
+        if record is not None:
+            record.update(amax)
+        return amax
+
+    SimpleHRNet._calibrate_int8 = calibrate
+    try:
+        yield record
+    finally:
+        SimpleHRNet._calibrate_int8 = real
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t if t.dtype == torch.int8 else t.float()).cpu().numpy()
+
+
+def int8_trace(model, frames: np.ndarray, inject=None) -> tuple:
+    """Run the port facade ``model``'s ``predict`` once on each of
+    ``frames`` with hooks on its pose model; returns (trace, outputs), the
+    outputs as ``run_facade`` gives them.
+
+    The trace lists, in forward order, (name, kind, array): the frame the
+    pose model receives (kind 'frame', in counts: the rounded [0, 255]
+    values its normalized input came from), every ``QConv2d``'s quantized
+    input ('int8': ``quantize(x, 1 / ascale)``, recomputed from the
+    module's input and scale), every conv's output ('float'), each
+    packed branch-0 chain's input, quantized input under int8 and output
+    (a chain kernel is one launch: its inner requantizations cannot be
+    seen), each stage module's branch outputs and fuse outputs, and the
+    heatmaps. ``trace['input']`` keeps the normalized input itself;
+    ``inject`` (such an input) replaces the pose model's input, on the
+    model's device."""
+    from simple_hrnet_tpu_torch.models.hrnet import StageModule
+    from simple_hrnet_tpu_torch.models.layers import QConv2d
+    from simple_hrnet_tpu_torch.ops.image import INV255_STD, MEAN255
+    from simple_hrnet_tpu_torch.ops.int8 import quantize
+
+    net = model.model
+    entries, hooks, chains = [], [], []
+    kept = {}
+
+    def add(name, kind, t):
+        entries.append((name, kind, _host(t)))
+
+    def on_input(_m, args):
+        x = args[0]
+        if inject is not None:
+            x = torch.as_tensor(inject).to(x.device)
+        kept['input'] = _host(x)
+        counts = torch.round(x.float() / torch.as_tensor(INV255_STD).to(
+            x.device) + torch.as_tensor(MEAN255).to(x.device))
+        add('frame', 'frame', counts)
+        return (x,) + tuple(args[1:])
+
+    def on_qconv(name):
+        def hook(m, args):
+            add(f'{name}:q', 'int8', quantize(args[0].permute(0, 2, 3, 1),
+                                              1.0 / m.ascale))
+        return hook
+
+    def on_output(name):
+        def hook(_m, _args, out):
+            if isinstance(out, (list, tuple)):
+                for i, o in enumerate(out):
+                    add(f'{name}:fuse{i}', 'float', o)
+            else:
+                add(name, 'float', out)
+        return hook
+
+    def on_chain(name, m):
+        real = m._run_chain
+
+        def run(x):
+            add(f'{name}.chain:in', 'float', x)
+            if m.chain_int8 is not None:
+                add(f'{name}.chain:in:q', 'int8',
+                    quantize(x, 1.0 / m.chain_int8['ascales'][0]))
+            y = real(x)
+            add(f'{name}.branches.0', 'float', y)
+            return y
+        m._run_chain = run
+        chains.append(m)
+
+    hooks.append(net.register_forward_pre_hook(on_input))
+    for name, m in net.named_modules():
+        if isinstance(m, QConv2d):
+            hooks.append(m.register_forward_pre_hook(on_qconv(name)))
+        if isinstance(m, (QConv2d, torch.nn.Conv2d)):
+            hooks.append(m.register_forward_hook(on_output(name)))
+        elif isinstance(m, StageModule):
+            on_chain(name, m)
+            for b, branch in enumerate(m.branches):
+                hooks.append(branch.register_forward_hook(
+                    on_output(f'{name}.branches.{b}')))
+            hooks.append(m.register_forward_hook(on_output(name)))
+    hooks.append(net.register_forward_hook(
+        lambda _m, _args, out: add('heatmaps', 'float', out)))
+    try:
+        outs = [tuple(np.asarray(a, np.float32) for a in model.predict(f))
+                for f in frames]
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in chains:
+            del m._run_chain
+    return {'entries': entries, 'input': kept.get('input')}, outs
+
+
+def first_departure(a: dict, b: dict) -> dict:
+    """Hold trace ``a`` against trace ``b`` entry by entry (``int8_trace``
+    traces of the same facade configuration). Each row: the entry's name,
+    kind, elements, how many differ and the largest difference: in counts
+    for the frame, in quanta for int8 entries, and as a share of ``b``'s
+    largest magnitude for float entries. ``first`` is the first row that
+    differs (None when none does)."""
+    ea, eb = a['entries'], b['entries']
+    if [(n, k) for n, k, _ in ea] != [(n, k) for n, k, _ in eb]:
+        raise ValueError('the traces hold other entries: not the same '
+                         'configuration')
+    rows = []
+    for (name, kind, x), (_, _, y) in zip(ea, eb):
+        if x.shape != y.shape:
+            raise ValueError(f'{name}: shapes {x.shape} and {y.shape}')
+        d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        top = float(np.abs(y).max()) if kind == 'float' and y.size else 1.0
+        rows.append({'name': name, 'kind': kind, 'elements': int(d.size),
+                     'differ': int(np.count_nonzero(d)),
+                     'max_diff': float(d.max() / (top or 1.0))
+                     if d.size else 0.0,
+                     'unit': {'frame': 'counts', 'int8': 'quanta'}.get(
+                         kind, 'of max')})
+    first = next((r for r in rows if r['differ']), None)
+    return {'rows': rows, 'first': first}
+
+
+def amax_departure(a: dict, b: dict) -> dict:
+    """Two calibration maps key by key, in f32 ulps: how many keys, how
+    many differ, the largest distance and its key; keys in one map only
+    are listed."""
+    keys = sorted(set(a) & set(b))
+    ia = np.asarray([a[k] for k in keys], np.float32).view(np.int32)
+    ib = np.asarray([b[k] for k in keys], np.float32).view(np.int32)
+    ulps = np.abs(ia.astype(np.int64) - ib.astype(np.int64))
+    worst = int(ulps.argmax()) if len(keys) else 0
+    return {'keys': len(keys), 'differ': int(np.count_nonzero(ulps)),
+            'max_ulps': int(ulps.max()) if len(keys) else 0,
+            'worst': keys[worst] if len(keys) else None,
+            'only_in_one': sorted(set(a) ^ set(b))}
+
+
+def departure_line(d: dict) -> str:
+    """One line of ``first_departure``'s first row and of what follows
+    it."""
+    r = d['first']
+    if r is None:
+        return f'no departure over {len(d["rows"])} entries'
+    i = d['rows'].index(r)
+    later = d['rows'][i:]
+    return (f'first departure at entry {i} of {len(d["rows"])}, {r["name"]} '
+            f'({r["kind"]}): {r["differ"]} of {r["elements"]} elements, '
+            f'largest {r["max_diff"]:.3e} {r["unit"]}; from there '
+            f'{sum(1 for x in later if x["differ"])} of {len(later)} '
+            f'entries differ')
 
 
 # ---------------------------------------------------------------------------
