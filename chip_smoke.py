@@ -53,12 +53,12 @@ Phases (any failure exits nonzero):
      before and reads them just after (K1 once a detect, the chain and
      the fuse 8 times a pose forward), runs every upload and runner call
      in sync-debug mode 'error', and fails on a pose batch phase 2 did not
-     check. Then, in bf16 after ``warmup``, each mode over 128 frames
+     check. Then, in bf16 after ``warmup``, each mode over 64 frames
      (the 16 looped): a first run checked as above (launches, pose
      batches, guarded dispatch, people and finite keypoints), frames/s
      from three timed runs (median, min, max) beside ``predict`` frame by
      frame and on stacks of 4, and device busy time and idle share over
-     the first 32 frames (one profiled run against three timed ones);
+     the first 16 frames (one profiled run against three timed ones);
   6. the SimpleBaselines path: ``SimpleHRNet(50, 17, <.pth>,
      model_name='PoseResNet', resolution=(256, 192), yolo_version='v5',
      yolo_model_def=<.pt>)`` from a seeded random PoseResNet-50 ``.pth``
@@ -71,7 +71,7 @@ Phases (any failure exits nonzero):
      on 1 and 8 frames, timed and profiled, with K1 launched once a detect
      chunk and no other kernel; in bf16 after ``warmup`` one chunked
      ``predict_stream`` (4 frames a launch) runs as phase 5 runs its modes,
-     dispatch guarded, and is timed over 128 frames;
+     dispatch guarded, and is timed over 64 frames;
   7. the single-person path: ``SimpleHRNet(c, 17, <.pth>, resolution,
      multiperson=False, interpolation=...)`` on the same 480x640 frames, no
      detector. In f32, entered with both TF32 flags on (cuDNN's is on by
@@ -90,7 +90,7 @@ Phases (any failure exits nonzero):
      read just after (K1 never; the path's chain and K3 8 times, one pose
      forward a call, at batches phase 2 checked), timed and the 8-frame
      call profiled; the single-person ``predict_stream`` at W48 bf16 after
-     ``warmup`` over 128 frames (the 16 looped), dispatch guarded, timed
+     ``warmup`` over 64 frames (the 16 looped), dispatch guarded, timed
      and profiled as phase 5's modes;
   8. the engine path (``utils/export.py``): five ``.torchpose`` engines
      exported on the card from phase 4's seeded ``.pth`` files at batch 16
@@ -163,23 +163,35 @@ Phases (any failure exits nonzero):
      library is built and checked where ``jpeglib.h`` is installed, and
      the phase says so where it is not;
  11. the production-geometry goldens (``tests/torch_goldens.py``): the
-     seeded weight files of BASELINE.json's five configs and the
-     scoreboard path are drawn again with numpy and must reproduce the
-     goldens' fingerprints ("weights differ" otherwise); each config then
-     runs through the facade on the card with the kernels, in f32 and in
-     its golden low-precision dtypes (W32-256x192 single-person in f32,
-     bf16 and int8; PoseResNet-50-256x192 on 4 frames; W48-384x288 at
-     ``max_batch_size=16`` on 16 frames in f32 and 2 in bf16; YOLOv3-tiny
-     + W32; YOLOv5m-640 + W48 ``predict_stream`` on 8 frames at 8 people;
-     YOLOv3-416 + W48 at 32 people), launches counted around each call
+     seeded weight files of BASELINE.json's five configs, the scoreboard
+     path and the W32 multi-person path (BN statistics drawn so that
+     every folded bias is non-zero) are drawn again with numpy and must
+     reproduce the goldens' fingerprints ("weights differ" otherwise);
+     each config then runs through the facade on the card with the
+     kernels, in every dtype the card times and its golden holds
+     (W32-256x192 single-person in f32, bf16 and int8;
+     PoseResNet-50-256x192 on 4 frames in f32, bf16 and int8; W48-384x288
+     at ``max_batch_size=16`` on 16 frames in f32 and 2 in bf16;
+     YOLOv3-tiny + W32 in f32; YOLOv5m-640 + W48 ``predict_stream`` on 8
+     frames at 8 people in f32, 5 in bf16; YOLOv3-416 + W48 in f32 and
+     bf16; YOLOv3-416 + W32 ``predict`` on a stack of 2 frames in f32,
+     bf16 and int8, YOLOv3 quantized), launches counted around each call
      (K1 once a detect, the chain and K3 8 times a pose forward), and is
      held against the JAX package's answers with the helper's card limits
      (f32 heatmaps within 1e-3 of max, boxes and decisive keypoints within
-     1e-3 px; bf16 and int8 within twice the JAX package's own distance
-     to f32); two controls (other frames' golden, a zeroed chain in f32,
-     bf16 and int8) must fail; all five kernels must have run. Then the
-     int8 trace: the W32 single-person int8 facade built on the card and
-     on the CPU in this process, traced stage by stage
+     1e-3 px; bf16 within twice the JAX package's own distance to f32,
+     int8 within twice its own int8 spread, the old rule's bound printed
+     beside it, and with its quantized convs and their activation scales;
+     in bf16 and int8 the people matched by box, the detector's boxes
+     within twice the JAX package's own dtype-to-f32 distance, the
+     facade's whole-pixel boxes within that and at least one pixel); four
+     controls (other frames' golden, a zeroed chain in f32, bf16 and int8,
+     the PoseResNet-50 bf16 facade against its int8 golden, and YOLOv3 +
+     W32 int8 with ``conv_1`` quantized as before ROADMAP C11's repair)
+     must fail, their readings printed beside their bounds; all five
+     kernels must have run.
+     Then the int8 trace: the W32 single-person int8 facade built on the
+     card and on the CPU in this process, traced stage by stage
      (``torch_goldens.int8_trace``), with the frames' difference in counts,
      the calibration maps' in ulps, the first traced entry that departs,
      and the card's golden distance rerun on the CPU's frame and then also
@@ -196,6 +208,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1178,14 +1191,16 @@ STREAM_TOL = 1e-4
 STUB_COUNTS = (3, 3, 1, 0, 0, 0, 0, 0, 6, 2, 7, 0)
 STUB_WINDOW = 2
 STUB_CAP = 8
-# phase 5's timing window: ``smooth_frames(16)`` looped to 128 frames, so
+# phase 5's timing window: ``smooth_frames(16)`` looped to 64 frames, so
 # that start-up (the adaptive ladder's climb, the pipeline's fill and
 # drain) is a few launches of many; each mode timed this many times. The
-# idle share comes from the window's first 32 frames (a profiled run of
-# 128 frames takes minutes to summarize), timed three times unprofiled.
-STREAM_TIME_FRAMES = 128
+# idle share comes from the window's first 16 frames (the profiler's
+# summary grows with the run), timed three times unprofiled. Both windows
+# are sized so that the whole script stays well inside its time limit on a
+# slow card host: the host-bound runs take twice as long there.
+STREAM_TIME_FRAMES = 64
 STREAM_TIME_RUNS = 3
-STREAM_PROFILE_FRAMES = 32
+STREAM_PROFILE_FRAMES = 16
 
 
 def drive_stream(model, frames, kw, counters, per_pose=None,
@@ -3275,7 +3290,9 @@ def run_golden(G, config, dtype, n, paths, counters, golden):
                              f'{len(seen)} pose forwards; want {want}')
     rows = G.detector_rows(det, frames) if det is not None else None
     r = G.compare(outs, golden, dtype, 'card', rows=rows,
-                  frames=slice(0, n) if n else None)
+                  frames=slice(0, n) if n else None,
+                  scales=G.quantized_scales(model) if dtype == 'int8'
+                  else None)
     r.update(launches=launches, pose_batches=seen)
     print(f'phase 11 {G.report(r)}; launches {launches}', flush=True)
     if not r['ok']:
@@ -3287,9 +3304,13 @@ def run_golden(G, config, dtype, n, paths, counters, golden):
 
 def golden_controls(G, paths, w48_outs):
     """Each gate must fail on a wrong input: W48's frames 0-1 against the
-    golden's frames 2-3, and W32's plain path (``use_fused_kernels=False``)
+    golden's frames 2-3; W32's plain path (``use_fused_kernels=False``)
     with stage 3's first branch-0 chain output zeroed, in f32, bf16 and
-    int8."""
+    int8; the PoseResNet-50 bf16 facade against the int8 golden (no conv
+    quantized); and the YOLOv3 + W32 int8 facade with YOLOv3's ``conv_1``
+    quantized too (``torch_goldens.plain_stem_int8``, the set before
+    ROADMAP C11's repair). The last two print every reading beside its
+    bound: they show what the int8 gates can and cannot see."""
     rec = {}
     r = G.compare(w48_outs[:2], G.load_golden('w48_384x288_batch16'), 'f32',
                   'card', frames=slice(2, 4))
@@ -3312,8 +3333,29 @@ def golden_controls(G, paths, w48_outs):
             raise AssertionError(f'phase 11 control: a zeroed chain passed '
                                  f'{dtype}: {G.report(r)}')
         rec[f'zeroed_chain_{dtype}_heatmap_rel_max'] = r['heatmap_rel_max']
+    for label, config, dtype, stem in (
+            ('res50_bf16_as_int8', 'res50_256x192_batch4', 'bfloat16',
+             contextlib.nullcontext()),
+            ('yolov3_conv_1_quantized', 'multiperson_yolov3_w32', 'int8',
+             G.plain_stem_int8())):
+        with stem:
+            model = G.port_facade(config, paths, dtype, device='cuda')
+        frames = G.config_frames(config)
+        outs = G.run_facade(model, config, frames)
+        rows = (G.detector_rows(model.detector, frames)
+                if model.detector is not None else None)
+        r = G.compare(outs, G.load_golden(config), 'int8', 'card', rows=rows,
+                      scales=G.quantized_scales(model))
+        print(f'phase 11 control {label}: {G.report(r)}', flush=True)
+        if r['ok']:
+            raise AssertionError(f'phase 11 control: {label} passed: '
+                                 f'{G.report(r)}')
+        rec[label] = {k: v for k, v in r.items() if k != 'config'}
+        del model
+        torch.cuda.empty_cache()
     print(f'phase 11 controls fail as they must (heatmap distance, of '
-          f'max): {rec}', flush=True)
+          f'max): { {k: v for k, v in rec.items() if k.endswith("max")} }',
+          flush=True)
     return rec
 
 

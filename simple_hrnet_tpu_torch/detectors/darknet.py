@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.models.convert import load_into
-from simple_hrnet_tpu_torch.models.layers import init_conv_
+from simple_hrnet_tpu_torch.models.layers import add_bias, init_conv_
 from simple_hrnet_tpu_torch.utils.device import host_to_device
 
 Block = Dict[str, Any]
@@ -208,6 +208,44 @@ def output_channels(blocks: List[Block], in_channels: int = 3) -> List[int]:
     return chans
 
 
+def phase_stem_convs(blocks: List[Block]) -> List[str]:
+    """The convs that the JAX package's phase stem (``darknet.
+    stem_phaseable`` and ``phase_stem_params`` there, on by default at an
+    even ``img_size``) rewrites out of the int8 policy, which would
+    otherwise take them: ``conv_1`` where a stride-2 3x3 conv follows the
+    first conv (YOLOv3; its rewritten form (2, 2, 4co, c1) has kh < 3).
+    None where a 2x2 stride-2 maxpool follows it (YOLOv3-tiny) or the stem
+    does not qualify (a stride-1 3x3 conv first, then that downsample, and
+    no later block routing back to block 0). ``conv_0`` (three input
+    channels) is outside the policy either way."""
+    if len(blocks) < 2:
+        return []
+    b0, b1 = blocks[0], blocks[1]
+    if not (b0['type'] == 'convolutional' and b0['size'] == 3
+            and b0['stride'] == 1 and b0['pad'] == 1):
+        return []
+    down_conv = (b1['type'] == 'convolutional' and b1['size'] == 3
+                 and b1['stride'] == 2 and b1['pad'] == 1)
+    down_pool = (b1['type'] == 'maxpool' and b1['size'] == 2
+                 and b1['stride'] == 2)
+    if not (down_conv or down_pool):
+        return []
+    for i, blk in enumerate(blocks):
+        back = ([blk['from']] if blk['type'] == 'shortcut' else
+                blk['layers'] if blk['type'] == 'route' else [])
+        if any((l if l >= 0 else i + l) == 0 for l in back):
+            return []
+    return ['conv_1'] if down_conv else []
+
+
+@functools.lru_cache(maxsize=None)
+def _leaky_slope(dtype: torch.dtype) -> float:
+    """darknet's leaky slope 0.1 in ``dtype``, as ``jax.nn.leaky_relu``
+    casts it before its product (0.10009765625 in bf16), so that
+    ``F.leaky_relu`` rounds the same exact product once."""
+    return float(torch.tensor(0.1, dtype=dtype))
+
+
 class DarknetConv(nn.Module):
     """One convolutional block: conv (bias only without BN) -> BN ->
     activation. After int8 quantization (``quantize.quantize_folded`` with
@@ -231,13 +269,13 @@ class DarknetConv(nn.Module):
         if self.qconv is not None:
             y = self.qconv(x)
         else:
-            y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                         padding=self.padding)
+            y = add_bias(F.conv2d(x, self.weight, None, stride=self.stride,
+                                  padding=self.padding), self.bias)
         if self.bn is not None:
             y = self.bn(y)
         act = self.activation
         if act == 'leaky':
-            y = F.leaky_relu(y, 0.1)
+            y = F.leaky_relu(y, _leaky_slope(y.dtype))
         elif act == 'relu':
             y = F.relu(y)
         elif act == 'logistic':

@@ -232,11 +232,18 @@ class YOLOv3(PersonDetector):
 
     def _quantize_int8(self, net: darknet.Darknet, img_size: int) -> None:
         """Calibrate the folded f32 network on a smooth synthetic frame and
-        quantize its policy-accepted convs in place."""
+        quantize in place the policy-accepted convs that the JAX package
+        quantizes with its defaults."""
         cal = torch.from_numpy(Q.smooth_frames((img_size, img_size))).to(
             self.device)
         amax = Q.calibrate(net, [cal], forward=lambda v: net(v, img_size),
                            types=(darknet.DarknetConv,))
+        if img_size % 2 == 0:
+            # the JAX package's phase stem, on by default at an even size,
+            # rewrites these convs out of its quantize policy: they stay in
+            # the compute type there, and so here
+            for name in darknet.phase_stem_convs(self.blocks):
+                amax.pop(name, None)
         Q.quantize_folded(net, amax, types=(darknet.DarknetConv,))
 
     # -- device pipeline ----------------------------------------------------

@@ -84,9 +84,9 @@ class Conv(nn.Module):
     def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
                  pad: Optional[int] = None):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, k, stride=stride,
-                              padding=k // 2 if pad is None else pad,
-                              bias=False)
+        self.conv = L.Conv2d(c_in, c_out, k, stride=stride,
+                             padding=k // 2 if pad is None else pad,
+                             bias=False)
         self.bn = L.bn(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +145,7 @@ class Detect(nn.Module):
 
     def __init__(self, channels: Tuple[int, int, int], n_out: int):
         super().__init__()
-        self.m = nn.ModuleList([nn.Conv2d(c, n_out, 1) for c in channels])
+        self.m = nn.ModuleList([L.Conv2d(c, n_out, 1) for c in channels])
 
 
 @functools.lru_cache(maxsize=None)

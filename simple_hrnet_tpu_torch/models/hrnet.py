@@ -240,7 +240,7 @@ class HRNet(nn.Module):
             nn.Sequential(_conv_bn_relu(4 * c, 8 * c, 2))])
         self.stage4 = nn.Sequential(StageModule(4, 4, c), StageModule(4, 4, c),
                                     StageModule(4, 1, c))
-        self.final_layer = nn.Conv2d(c, nof_joints, 1)
+        self.final_layer = L.Conv2d(c, nof_joints, 1)
         self.compute_dtype = torch.float32
 
     def stage_modules(self) -> List[StageModule]:

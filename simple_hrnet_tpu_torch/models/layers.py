@@ -32,12 +32,45 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
 
-def conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, 3, stride=stride, padding=1, bias=False)
+def add_bias(out: torch.Tensor, bias: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+    """A conv's bias epilogue in the JAX package's order
+    (``layers.conv2d`` / ``deconv2d``): ``out``, the conv's output already
+    rounded to the compute type, plus the bias rounded to that type, so a
+    bf16 result is rounded twice. oneDNN would fold the bias into the sum
+    and round once; cuDNN's PyTorch path adds it in a separate kernel, as
+    here, so the card runs the same launches either way."""
+    if bias is None:
+        return out
+    return out + bias.to(out.dtype).view(1, -1, 1, 1)
 
 
-def conv1x1(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, 1, stride=stride, bias=False)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and ``state_dict``) whose bias is
+    added by ``add_bias``: every biased conv of the port, folded ones
+    included, is one of these."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return add_bias(super()._conv_forward(x, weight, None), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose bias is added by ``add_bias`` (a
+    PoseResNet deconv, once its BN is folded)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return add_bias(F.conv_transpose2d(
+            x, self.weight, None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation), self.bias)
+
+
+def conv3x3(c_in: int, c_out: int, stride: int = 1) -> Conv2d:
+    return Conv2d(c_in, c_out, 3, stride=stride, padding=1, bias=False)
+
+
+def conv1x1(c_in: int, c_out: int, stride: int = 1) -> Conv2d:
+    return Conv2d(c_in, c_out, 1, stride=stride, bias=False)
 
 
 def bn(c: int) -> nn.BatchNorm2d:

@@ -46,7 +46,7 @@ class PoseResNet(nn.Module):
         expansion = 1 if basic else 4
         self.resnet_size = resnet_size
         self.nof_joints = nof_joints
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = L.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = L.bn(64)
         inplanes = 64
         for li, n_blocks in enumerate(counts, start=1):
@@ -61,12 +61,12 @@ class PoseResNet(nn.Module):
             self.add_module(f'layer{li}', nn.Sequential(*blocks))
         deconvs = []
         for _ in range(3):
-            deconvs += [nn.ConvTranspose2d(inplanes, DECONV_CHANNELS, 4,
-                                           stride=2, padding=1, bias=False),
+            deconvs += [L.ConvTranspose2d(inplanes, DECONV_CHANNELS, 4,
+                                          stride=2, padding=1, bias=False),
                         L.bn(DECONV_CHANNELS), nn.ReLU()]
             inplanes = DECONV_CHANNELS
         self.deconv_layers = nn.Sequential(*deconvs)
-        self.final_layer = nn.Conv2d(DECONV_CHANNELS, nof_joints, 1)
+        self.final_layer = L.Conv2d(DECONV_CHANNELS, nof_joints, 1)
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from simple_hrnet_tpu_torch.utils.device import resolve_device
 from .mesh import Mesh
 
 
@@ -76,30 +77,30 @@ def initialize(coordinator_address: Optional[str] = None,
 
     ``coordinator_address`` 'host:port' with ``num_processes`` and
     ``process_id``, or all three None under ``torchrun`` (its
-    ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``). ``backend``
-    defaults to NCCL when ``device`` (default: 'cuda' where a card is
-    visible) is CUDA, else gloo. Idempotent, as the JAX package's is."""
+    ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``). ``device``
+    'cuda' (default; raises without a card, as every entry point does)
+    or 'cpu'; ``backend`` defaults to NCCL on CUDA, gloo on the CPU.
+    Idempotent, as the JAX package's is."""
     if is_initialized():
         return
-    if device is None:
-        device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    given = (coordinator_address, num_processes, process_id)
+    if any(a is not None for a in given) and None in given:
+        raise ValueError('pass coordinator_address, num_processes and '
+                         'process_id together (or none of them under '
+                         'torchrun)')
+    kind = resolve_device(device).type
     if backend is None:
-        backend = 'nccl' if torch.device(device).type == 'cuda' else 'gloo'
+        backend = 'nccl' if kind == 'cuda' else 'gloo'
     timeout = datetime.timedelta(seconds=timeout_s)
-    if coordinator_address is None and num_processes is None \
-            and process_id is None:
+    if coordinator_address is None:
         dist.init_process_group(backend, init_method='env://',
                                 timeout=timeout)
     else:
-        if None in (coordinator_address, num_processes, process_id):
-            raise ValueError('pass coordinator_address, num_processes and '
-                             'process_id together (or none of them under '
-                             'torchrun)')
         dist.init_process_group(
             backend, init_method=f'tcp://{coordinator_address}',
             world_size=int(num_processes), rank=int(process_id),
             timeout=timeout)
-    if torch.device(device).type == 'cuda':
+    if kind == 'cuda':
         torch.cuda.set_device(local_device())
 
 

@@ -1,0 +1,190 @@
+"""The port's biased bf16 convs round as the JAX package's do, on the CPU.
+
+The JAX package's ``layers.conv2d`` and ``deconv2d`` round the conv's
+output to bf16 and then add the bf16 bias (two roundings); a bf16
+``nn.Conv2d`` with a bias on the CPU (oneDNN) rounds ``sum + bias`` once.
+Every biased conv of the port adds its bias through
+``models.layers.add_bias``: a folded ``BasicBlock`` conv, the 1x1 head, a
+PoseResNet transposed conv, a darknet conv (also with its leaky
+activation, whose bf16 slope follows ``jax.nn.leaky_relu``'s) and a YOLOv5
+conv are each held against the JAX function on the same numpy inputs,
+with drawn BatchNorm
+statistics so that every folded bias is non-zero: within one bf16 step
+everywhere, and unequal in under 0.1% of the elements (the f32 sums'
+order differs). Also: ``distributed.initialize`` takes the card by
+default and raises without one.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+import torch.nn as nn
+from torch_port_threads import torch_two_threads  # noqa: F401 (autouse)
+
+from simple_hrnet_tpu.models import layers as JL
+
+from simple_hrnet_tpu_torch.detectors import darknet as TD
+from simple_hrnet_tpu_torch.detectors import yolov5 as T5
+from simple_hrnet_tpu_torch.models import layers as L
+from simple_hrnet_tpu_torch.parallel import distributed as D
+
+# the share of elements that may differ by one bf16 step: the f32 sums'
+# order differs between oneDNN and XLA, so a few roundings land apart
+MAX_DIFFERING = 1e-3
+
+
+def draw_bn(bn: nn.BatchNorm2d, rng) -> None:
+    """BN statistics that fold to a non-zero bias of the conv output's
+    order."""
+    c = bn.num_features
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+        bn.bias.copy_(torch.from_numpy(rng.uniform(-0.5, 0.5, c)))
+        bn.running_mean.copy_(torch.from_numpy(rng.uniform(-0.5, 0.5, c)))
+        bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+
+
+def draw_conv(conv: nn.Module, rng) -> None:
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(rng.uniform(
+            -0.1, 0.1, tuple(conv.weight.shape))))
+        if conv.bias is not None:
+            conv.bias.copy_(torch.from_numpy(rng.uniform(
+                -0.5, 0.5, tuple(conv.bias.shape))))
+
+
+def port_bf16(conv: nn.Module, x: np.ndarray, fn=None) -> np.ndarray:
+    """``fn(conv, x)`` (default ``conv(x)``) in bf16 on NHWC ``x``, the
+    output NHWC f32."""
+    conv.to(torch.bfloat16)
+    t = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16)
+    with torch.no_grad():
+        out = (fn or (lambda m, v: m(v)))(conv, t)
+    return out.float().permute(0, 2, 3, 1).numpy()
+
+
+def jax_params(weight: torch.Tensor, bias: torch.Tensor,
+               transposed: bool = False) -> dict:
+    """The JAX package's conv node of a folded f32 port conv: HWIO kernel
+    (a transposed conv's spatially flipped, I = C_in, as its converter
+    stores it) and bias."""
+    w = weight.detach().float().numpy()
+    kernel = (np.flip(w, (2, 3)).transpose(2, 3, 0, 1) if transposed
+              else w.transpose(2, 3, 1, 0))
+    return {'kernel': jnp.asarray(np.ascontiguousarray(kernel)),
+            'bias': jnp.asarray(bias.detach().float().numpy())}
+
+
+def assert_rounds_as_jax(got: np.ndarray, want) -> None:
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    mag = np.maximum(np.abs(got), np.abs(want))
+    step = 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    diff = np.abs(got - want)
+    differing = float(np.mean(diff > 0))
+    print(f'{differing:.3e} of {got.size} elements differ, largest '
+          f'{float((diff / step).max()):.2f} bf16 steps')
+    assert (diff <= step).all()
+    assert differing < MAX_DIFFERING
+
+
+def frame(shape, seed):
+    return np.random.default_rng(seed).uniform(-1, 1, shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize('conv', ['conv1', 'downsample'])
+def test_folded_basic_block_conv(conv):
+    """A ``BasicBlock``'s folded 3x3 stride-2 conv and its 1x1 stride-2
+    downsample against ``layers.conv2d`` in bf16."""
+    rng = np.random.default_rng(0)
+    blk = L.BasicBlock(32, 32, stride=2, downsample=True)
+    for m in blk.modules():
+        if isinstance(m, nn.Conv2d):
+            draw_conv(m, rng)
+        elif isinstance(m, nn.BatchNorm2d):
+            draw_bn(m, rng)
+    L.fold_batch_norm(blk.eval())
+    m = blk.conv1 if conv == 'conv1' else blk.downsample[0]
+    assert m.bias is not None and float(m.bias.abs().min()) > 0
+    p = jax_params(m.weight, m.bias)
+    x = frame((2, 16, 16, 32), 1)
+    want = JL.conv2d(jnp.asarray(x), p, stride=2,
+                     padding=1 if conv == 'conv1' else 0,
+                     dtype=jnp.bfloat16)
+    assert_rounds_as_jax(port_bf16(m, x), want)
+
+
+def test_head_conv():
+    """The 1x1 head with its drawn bias."""
+    rng = np.random.default_rng(2)
+    head = L.Conv2d(32, 17, 1)
+    draw_conv(head, rng)
+    p = jax_params(head.weight, head.bias)
+    x = frame((2, 16, 12, 32), 3)
+    want = JL.conv2d(jnp.asarray(x), p, dtype=jnp.bfloat16)
+    assert_rounds_as_jax(port_bf16(head, x), want)
+
+
+def test_poseresnet_deconv():
+    """A PoseResNet transposed conv (4x4, stride 2, padding 1) with its BN
+    folded, against ``layers.deconv2d``."""
+    rng = np.random.default_rng(4)
+    seq = nn.Sequential(L.ConvTranspose2d(32, 32, 4, stride=2, padding=1,
+                                          bias=False), L.bn(32))
+    draw_conv(seq[0], rng)
+    draw_bn(seq[1], rng)
+    L.fold_batch_norm(seq.eval())
+    m = seq[0]
+    p = jax_params(m.weight, m.bias, transposed=True)
+    x = frame((2, 8, 6, 32), 5)
+    want = JL.deconv2d(jnp.asarray(x), p, dtype=jnp.bfloat16)
+    assert_rounds_as_jax(port_bf16(m, x), want)
+
+
+@pytest.mark.parametrize('activation', ['linear', 'leaky'])
+def test_darknet_conv(activation):
+    """A darknet convolutional block (BN folded, as ``darknet.fold_weights``
+    casts it), linear or leaky: ``jax.nn.leaky_relu`` casts its slope 0.1
+    to bf16 before the product, which the port's slope follows."""
+    rng = np.random.default_rng(6)
+    blk = {'type': 'convolutional', 'bn': True, 'filters': 32, 'size': 3,
+           'stride': 1, 'pad': 1, 'activation': activation}
+    m = TD.DarknetConv(32, blk)
+    draw_conv(m, rng)
+    draw_bn(m.bn, rng)
+    m.eval().fold()
+    p = jax_params(m.weight, m.bias)
+    x = frame((2, 16, 16, 32), 7)
+    want = JL.conv2d(jnp.asarray(x), p, padding=1, dtype=jnp.bfloat16)
+    if activation == 'leaky':
+        want = jax.nn.leaky_relu(want, 0.1)
+    assert_rounds_as_jax(port_bf16(m, x), want)
+
+
+def test_yolov5_conv():
+    """A YOLOv5 ``Conv``'s folded 3x3 conv (before its SiLU)."""
+    rng = np.random.default_rng(8)
+    blk = T5.Conv(32, 32, 3)
+    draw_conv(blk.conv, rng)
+    draw_bn(blk.bn, rng)
+    L.fold_batch_norm(blk.eval())
+    p = jax_params(blk.conv.weight, blk.conv.bias)
+    x = frame((2, 16, 16, 32), 9)
+    want = JL.conv2d(jnp.asarray(x), p, padding=1, dtype=jnp.bfloat16)
+    assert_rounds_as_jax(port_bf16(blk.conv, x), want)
+
+
+def test_initialize_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """With ``device`` None ``initialize`` takes the card and raises
+    without one, in ``utils/device``'s words; partial coordinator
+    arguments still raise ``ValueError`` first."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        D.initialize('127.0.0.1:1', 1, 0)
+    with pytest.raises(ValueError, match='together'):
+        D.initialize('127.0.0.1:1', None, 0)
+    assert not D.is_initialized()

@@ -19,6 +19,7 @@ from simple_hrnet_tpu.detectors import yolov3 as JY
 from simple_hrnet_tpu_torch.detectors import darknet as TD
 from simple_hrnet_tpu_torch.detectors import yolov3 as TY
 from simple_hrnet_tpu_torch.models import convert as TC
+from simple_hrnet_tpu_torch.models import quantize as TQ
 
 
 @pytest.fixture(scope='module')
@@ -126,5 +127,31 @@ def test_int8_tiny_detector_matches_jax_quantized_set(tiny):
     got = {n: m.qconv.ascale.item() for n, m in det.net.named_modules()
            if getattr(m, 'qconv', None) is not None}
     assert sorted(got) == sorted(ref)
+    for k, a in ref.items():
+        assert abs(got[k] - a) <= 1e-5 * a, k
+
+
+def test_int8_yolov3_matches_jax_default_quantized_set(tmp_path):
+    """YOLOv3 under dtype='int8' with both packages' defaults: the JAX
+    facade turns its phase stem on at an even size, which rewrites
+    ``conv_1`` (3, 3, 32, 64) out of the quantize policy, so the port
+    leaves ``conv_1`` in bf16 too (it would pass the policy) and
+    quantizes the same set with the same activation scales to 1e-5. The
+    set does not depend on the size: 64 keeps the test short."""
+    jq = JY.YOLOv3('yolov3', dtype='int8', img_size=64)
+    assert jq.phase_stem
+    ref = {k: float(v['ascale']) for k, v in jq.params.items()
+           if 'kernel_q' in v}
+    path = str(tmp_path / 'yolov3.pth')
+    torch.save(TC.from_jax_params(JD.init(jax.random.PRNGKey(0),
+                                          JD.yolov3_blocks())), path)
+    det = TY.YOLOv3('yolov3', weights_path=path, device='cpu',
+                    dtype='int8', img_size=64)
+    got = {n: m.qconv.ascale.item() for n, m in det.net.named_modules()
+           if getattr(m, 'qconv', None) is not None}
+    assert 'conv_1' not in got and TQ.default_policy(
+        TQ.conv_shape(det.net.conv_1))
+    assert sorted(got) == sorted(ref) == ['conv_10', 'conv_3', 'conv_5',
+                                          'conv_7']
     for k, a in ref.items():
         assert abs(got[k] - a) <= 1e-5 * a, k

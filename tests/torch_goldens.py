@@ -1,40 +1,50 @@
 """Production-geometry goldens: the JAX package's answers that the port is
-held to, at the full width and resolution of BASELINE.json's five configs
-and of the scoreboard path (JAX-free to import).
+held to, at the full width and resolution of BASELINE.json's five configs,
+the scoreboard path and the W32 multi-person path, in every dtype the card
+times (JAX-free to import).
 
 ``python tests/torch_goldens.py`` regenerates ``tests/goldens/port_*.json``
-from the JAX package on the CPU (JAX imported inside ``main``; about 3
-minutes on 8 cores, the JAX facade's Pallas kernels interpreted as on
-its TPU, and a rerun writes the same bytes). The committed set was
-produced by the JAX package at commit
-2f2a6d02de164243f3d37aa40d232e49dd3cf64b (the last commit touching
-``simple_hrnet_tpu/``), which each golden records. A deliberate numeric
-change to the JAX package or to the port must regenerate them; a change
-that moves a golden otherwise is a fault.
+from the JAX package on the CPU (JAX imported inside ``main``; about 22
+minutes on 8 cores, half of it the int8 configs' JAX runs, the JAX
+facade's Pallas kernels interpreted as on its TPU, and a rerun writes the
+same bytes); ``--only CONFIG ...`` regenerates some; ``--cpu-check
+CONFIG DTYPE`` holds the port on the CPU against one pair (torch only),
+for the pairs the CPU tests leave to the card. Each golden records
+the commit of the JAX package it came from (the last commit touching
+``simple_hrnet_tpu/``). A deliberate numeric change to the JAX package or
+to the port must regenerate them; a change that moves a golden otherwise
+is a fault.
 
 The weights are seeded, not downloaded: every parameter is drawn with
 numpy (``np.random.default_rng(seed)``, in ``state_dict`` order, torch's
-default kaiming-uniform bound ``gain / sqrt(fan_in)``), BN statistics are
-the identity, and the files are written by the port's own writers
-(``torch.save``, ``darknet.save_darknet_weights``, an ultralytics-style
-``{'model': net}`` pickle). numpy draws the same values on every host and
-torch version, and ``fingerprint`` (a sha256 over the parameters' bytes,
-not the file's) proves it. Gains above 1 are for the networks whose
-activations torch's default bound shrinks to nothing (PoseResNet's
-deconvolutions, the detectors' deep stacks): there the output would be a
-constant plus float noise, and neither a keypoint nor a detection order
-could be compared. Each detector's objectness rows are scaled and its
-person logit raised so that its kept scores stand far apart (the
-``score_gap`` and ``cut_gap`` each golden records).
+default kaiming-uniform bound ``gain / sqrt(fan_in)`` for convs), and the
+files are written by the port's own writers (``torch.save``,
+``darknet.save_darknet_weights``, an ultralytics-style ``{'model': net}``
+pickle). Each BatchNorm's statistics are drawn so that its folded bias is
+non-zero and about ``bn_shift`` of its conv's output spread: the spreads
+come from ``tests/goldens/port_bn_spreads.json``, which
+``--bn-spreads`` measures once with the port (torch, no JAX) and which
+changes every fingerprint when remade. numpy draws the same values on every
+host and torch version, and ``fingerprint`` (a sha256 over the
+parameters' bytes, not the file's) proves it. Gains above 1 are for the
+networks whose activations torch's default bound shrinks to nothing
+(PoseResNet's deconvolutions, the detectors' deep stacks). Each detector's
+box rows are scaled to boxes of tens to hundreds of pixels, its
+objectness rows scaled and its person logit raised, so that it keeps a
+few separate people a frame (the ``score_gap`` and ``cut_gap`` each
+golden records).
 
 A golden records, for each frame and person: the box, the keypoints
 ``(y, x, conf)``, and for each joint the argmax cell, the 3x3 heatmap
 neighbourhood around it, the channel's mean, L2 norm and max magnitude,
 the argmax margin over the runner-up and the two neighbour differences
 that set the subpixel shift; for the detector configs the detector's
-rows. ``compare`` holds a run against a golden with the limits below,
-written once here for the CPU test (``tests/test_torch_goldens.py``) and
-the card (``chip_smoke.py`` phase 11).
+rows; for bf16 and int8 the JAX package's own distances between that
+dtype and f32 (heatmaps, and boxes where there is a detector), and for
+int8 its own spread between two computations of the int8 function.
+``compare`` holds a run against a golden with the limits below, written
+once here for the CPU test (``tests/test_torch_goldens.py``) and the card
+(``chip_smoke.py`` phase 11).
 """
 
 from __future__ import annotations
@@ -69,42 +79,96 @@ LIMITS = {'cpu': {'heatmap': 2e-4, 'box_px': 1e-3, 'keypoint_px': 1e-3},
 DECISIVE_FACTOR = 10.0
 # the share of decisive joints each config's frame seed aims for
 DECISIVE_SHARE = 0.8
-# bf16 and int8: the heatmap distance to the JAX golden in the same dtype
-# may be this many times the JAX package's own distance between that
-# dtype and f32 (``jax_vs_f32``). By the triangle inequality two graphs
-# whose low-precision error is each no larger than the JAX package's lie
-# within twice that error of each other; the JAX package's own two int8
-# graphs (``use_fused_kernels`` True and False) lie farther apart than
-# either lies from f32, so a factor of 1 fails the reference itself.
+# bf16: the heatmap distance to the JAX golden in the same dtype may be
+# this many times the JAX package's own distance between that dtype and
+# f32 (``jax_vs_f32``). By the triangle inequality two graphs whose
+# low-precision error is each no larger than the JAX package's lie within
+# twice that error of each other.
 LOW_PRECISION_FACTOR = 2.0
+# int8 (ROADMAP C9): the heatmap distance may be this many times
+# ``jax_int8_spread``, the largest distance the JAX package itself shows
+# between its int8 golden and another computation of the same int8
+# function on the same weights and frames: its other graph
+# (``use_fused_kernels=False``, HRNet only: ROADMAP C8) and its own graph
+# with every calibration amax of the pose model moved by a seeded
+# whole number of f32 ulps in [-25, 25] (the spread C9's trace measured
+# between the card's and the CPU's calibrations). The port on any host is
+# one more such reordering: its requantizations flip where the sums'
+# order differs, and the flips cascade, so its distance scales with this
+# spread and not with the int8 function's distance to f32 (which the
+# old rule, 2 x ``jax_vs_f32``, used; ``compare`` still reports it as
+# ``bound_old``). The spread samples the distance between two
+# reorderings; two reorderings that each lie within it of the function's
+# centre lie within twice it of each other, hence the factor 2.
+INT8_SPREAD_FACTOR = 2.0
+# the amax moves of the int8 spread: at most this many f32 ulps, drawn
+# from this seed
+INT8_AMAX_ULPS = 25
+INT8_AMAX_SEED = 9
+# Detector configs in bf16 and int8: a low-precision detector moves its
+# boxes and reorders near-equal scores, so the run's people are matched
+# to the golden's by box (each golden person in order takes the nearest
+# unmatched one) and then held in the golden's order. The people must be
+# the same (as many, and every matched box within the box bound); the
+# generator keeps only frames where the JAX package's own dtype run keeps
+# its f32 people so. The detector's boxes are held to LOW_PRECISION_FACTOR
+# times the JAX package's own matched distance between that dtype and f32
+# (``jax_vs_f32_det_px``), by the heatmaps' triangle argument, and never
+# below the f32 limit. The facade's boxes take the same rule on
+# ``jax_vs_f32_box_px`` with a floor of LOW_PRECISION_BOX_FLOOR_PX: they
+# are whole pixels, so a sub-pixel move of a detector box shows there only
+# as a one-pixel rounding flip.
+LOW_PRECISION_BOX_FLOOR_PX = 1.0
+# int8: the port's quantized convs, per network, are the JAX package's:
+# as many, and their activation scales (sorted) within this relative
+# distance (both calibrate the same folded weights on the same frames; the
+# f32 sums differ in order, by up to 25 ulps between the card and the CPU,
+# ROADMAP C9). The heatmaps cannot tell every int8 facade from a bf16 one
+# (PoseResNet-50's int8 and bf16 runs lie about as far from either golden),
+# so this is what holds the quantized set.
+INT8_SCALE_REL = 1e-5
 
 # The seeded weight files: (network kind, seed, gain of the default bound,
-# detector head edits). Detector edits: the objectness rows of each head's
-# weights times ``obj_gain``, ``obj_logit`` added to the objectness bias
-# and ``person_logit`` to the person class's.
+# the folded BN bias over its conv's output spread, detector head edits).
+# Detector edits: the box size rows of each head's weights times
+# ``wh_gain`` and ``wh_logit`` added to their bias (boxes of tens to
+# hundreds of pixels, which NMS merges into separate people), the
+# objectness rows times ``obj_gain``, ``obj_logit`` added to the
+# objectness bias and ``person_logit`` to the person class's.
+BN_SHIFT = 0.3
 WEIGHTS = {
-    'pose_hrnet_w32': dict(kind='hrnet', c=32, seed=1032, gain=1.0),
-    'pose_hrnet_w48': dict(kind='hrnet', c=48, seed=1048, gain=1.0),
+    'pose_hrnet_w32': dict(kind='hrnet', c=32, seed=1032, gain=1.0,
+                           bn_shift=BN_SHIFT),
+    'pose_hrnet_w48': dict(kind='hrnet', c=48, seed=1048, gain=1.0,
+                           bn_shift=BN_SHIFT),
     'pose_resnet_50': dict(kind='poseresnet', c=50, seed=1050,
-                           gain=6 ** 0.5),
+                           gain=6 ** 0.5, bn_shift=BN_SHIFT),
     'yolov3-tiny': dict(kind='darknet', tiny=True, seed=1003,
-                        gain=6 ** 0.5, obj_gain=10.0, obj_logit=-14.13,
+                        gain=6 ** 0.5, bn_shift=BN_SHIFT, wh_gain=0.3,
+                        wh_logit=0.0, obj_gain=10.0, obj_logit=-11.0,
                         person_logit=4.0),
     'yolov3': dict(kind='darknet', tiny=False, seed=1004, gain=1.7,
-                   obj_gain=30.0, obj_logit=-25.0, person_logit=4.0),
-    'yolov5m': dict(kind='yolov5', seed=1005, gain=2.2, obj_gain=300.0,
-                    obj_logit=-17.0, person_logit=4.0),
+                   bn_shift=BN_SHIFT, wh_gain=0.3, wh_logit=0.0,
+                   obj_gain=6.0, obj_logit=-26.5, person_logit=4.0),
+    'yolov5m': dict(kind='yolov5', seed=1005, gain=2.2, bn_shift=BN_SHIFT,
+                    wh_gain=1.0, wh_logit=3.0, obj_gain=100.0,
+                    obj_logit=-26.0, person_logit=4.0),
 }
+# each BN's input spread, per weight file (``--bn-spreads`` measures them
+# on the frame of this seed)
+BN_SPREADS_FILE = os.path.join(GOLDEN_DIR, 'port_bn_spreads.json')
+SPREAD_FRAME_SEED = 0
 FILE_NAMES = {'pose_hrnet_w32': 'pose_hrnet_w32_256x192.pth',
               'pose_hrnet_w48': 'pose_hrnet_w48_384x288.pth',
               'pose_resnet_50': 'pose_resnet_50_256x192.pth',
               'yolov3-tiny': 'yolov3-tiny.weights',
               'yolov3': 'yolov3.weights', 'yolov5m': 'yolov5m.pt'}
 
-# The golden configs: BASELINE.json's five (scripts/validate_goldens.py)
-# and the scoreboard path. ``dtypes``: the goldens the generator writes;
-# ``cpu`` / ``card``: the dtypes each place checks, with the frames
-# (None: all) each dtype runs on.
+# The golden configs: BASELINE.json's five (scripts/validate_goldens.py),
+# the scoreboard path and phase 4's W32 multi-person path. ``dtypes``: the
+# goldens the generator writes; ``cpu`` / ``card``: the dtypes each place
+# checks, with the frames (None: all) each dtype runs on. Each dtype is
+# one the card times (``chip_smoke.py`` phases 4-7).
 CONFIGS = {
     'w32_256x192_single': dict(
         pose='pose_hrnet_w32', c=32, res=(256, 192), detector=None,
@@ -115,8 +179,9 @@ CONFIGS = {
     'res50_256x192_batch4': dict(
         pose='pose_resnet_50', c=50, model_name='PoseResNet',
         res=(256, 192), detector=None, frames=4, frame_seed=21,
-        call='predict', dtypes={'f32': None}, cpu={'f32': None},
-        card={'f32': None}),
+        call='predict', dtypes={'f32': None, 'bfloat16': None, 'int8': None},
+        cpu={'f32': None},
+        card={'f32': None, 'bfloat16': None, 'int8': None}),
     'w48_384x288_batch16': dict(
         pose='pose_hrnet_w48', c=48, res=(384, 288), detector=None,
         frames=16, frame_seed=31, call='predict', max_batch_size=16,
@@ -128,12 +193,19 @@ CONFIGS = {
         cpu={'f32': None}, card={'f32': None}),
     'video_yolov5m_w48': dict(
         pose='pose_hrnet_w48', c=48, res=(384, 288), detector='yolov5m',
-        frames=8, frame_seed=51, call='stream', max_people=8,
-        dtypes={'f32': None}, cpu={'f32': None}, card={'f32': None}),
+        frames=8, frame_seed=87, call='stream', max_people=8,
+        dtypes={'f32': None, 'bfloat16': 5}, cpu={'f32': None},
+        card={'f32': None, 'bfloat16': 5}),
     'scoreboard_yolov3_w48': dict(
         pose='pose_hrnet_w48', c=48, res=(384, 288), detector='yolov3',
-        frames=1, frame_seed=61, call='predict_one', dtypes={'f32': None},
-        cpu={'f32': None}, card={'f32': None}),
+        frames=1, frame_seed=64, call='predict_one',
+        dtypes={'f32': None, 'bfloat16': None}, cpu={'f32': None},
+        card={'f32': None, 'bfloat16': None}),
+    'multiperson_yolov3_w32': dict(
+        pose='pose_hrnet_w32', c=32, res=(256, 192), detector='yolov3',
+        frames=2, frame_seed=139, call='predict',
+        dtypes={'f32': None, 'bfloat16': None, 'int8': None},
+        cpu={}, card={'f32': None, 'bfloat16': None, 'int8': None}),
 }
 
 
@@ -167,22 +239,53 @@ def _heads(net: torch.nn.Module) -> list:
     return [(m.weight, m.bias) for m in net.model['24'].m]
 
 
-def seeded_network(name: str) -> torch.nn.Module:
-    """Weight file ``name``'s network with its numpy-drawn parameters."""
+def _bn_modules(net: torch.nn.Module) -> list:
+    """(path, module) of every BatchNorm below ``net``, in module order."""
+    return [(n, m) for n, m in net.named_modules()
+            if isinstance(m, torch.nn.BatchNorm2d)]
+
+
+def load_bn_spreads() -> dict:
+    """``BN_SPREADS_FILE``: per weight file, the spread of each BN's input
+    in ``_bn_modules`` order (``measure_bn_spreads`` wrote them)."""
+    with open(BN_SPREADS_FILE) as f:
+        return json.load(f)
+
+
+def seeded_network(name: str, measure: bool = False) -> torch.nn.Module:
+    """Weight file ``name``'s network with its numpy-drawn parameters.
+
+    Conv weights and biases: uniform within ``gain`` times torch's default
+    bound. Each BN: ``weight`` and ``running_var`` uniform in [0.8, 1.25],
+    ``bias`` and ``running_mean`` uniform in [-1, 1] times ``bn_shift``
+    times the spread (standard deviation) of that BN's input on the
+    weight file's frame, so that the folded bias is non-zero and about
+    ``bn_shift`` of its conv's output spread at every depth: the spreads
+    of ``load_bn_spreads()[name]``, or with ``measure`` each taken from
+    the forward pass that runs next and recorded in ``net.bn_spreads``,
+    with the RMS of each folded bias over the spread of its folded conv's
+    output in ``net.bias_ratios`` (``measure_bn_spreads``). Everything is
+    drawn and scaled in numpy; torch only holds the values."""
     spec = WEIGHTS[name]
     net = _network(name).eval()
     rng = np.random.default_rng(spec['seed'])
     modules = dict(net.named_modules())
+    shifts = {}
     with torch.no_grad():
         for key, t in net.state_dict(keep_vars=True).items():
             owner, _, leaf = key.rpartition('.')
             m = modules[owner]
             w = getattr(m, 'weight', None)
             if isinstance(m, torch.nn.BatchNorm2d):
-                if leaf in ('weight', 'running_var'):
-                    t.fill_(1.0)
-                else:
+                if leaf == 'num_batches_tracked':
                     t.zero_()
+                    continue
+                if leaf in ('weight', 'running_var'):
+                    v = rng.uniform(0.8, 1.25, tuple(t.shape))
+                else:
+                    v = rng.uniform(-1.0, 1.0, tuple(t.shape))
+                    shifts[key] = (v * spec['bn_shift']).astype(np.float32)
+                t.copy_(torch.from_numpy(v.astype(np.float32)))
             elif leaf in ('weight', 'bias') and w is not None and w.dim() == 4:
                 bound = spec['gain'] / math.sqrt(w[0].numel())
                 t.copy_(torch.from_numpy(rng.uniform(
@@ -191,11 +294,85 @@ def seeded_network(name: str) -> torch.nn.Module:
                 raise ValueError(f'{name}: no draw rule for {key}')
         if 'obj_gain' in spec:
             for weight, bias in _heads(net):
-                weight.view(3, -1, *weight.shape[1:])[:, 4] *= \
-                    spec['obj_gain']
+                rows = weight.view(3, -1, *weight.shape[1:])
+                rows[:, 2:4] *= spec['wh_gain']
+                rows[:, 4] *= spec['obj_gain']
+                bias.view(3, -1)[:, 2:4] += spec['wh_logit']
                 bias.view(3, -1)[:, 4] += spec['obj_logit']
                 bias.view(3, -1)[:, 5] += spec['person_logit']
+
+        def scale(path, bn, spread):
+            s = np.float32(spread)
+            for leaf in ('bias', 'running_mean'):
+                getattr(bn, leaf).copy_(torch.from_numpy(
+                    shifts[f'{path}.{leaf}'] * s))
+
+        bns = _bn_modules(net)
+        if not measure:
+            spreads = load_bn_spreads()[name]
+            if len(spreads) != len(bns):
+                raise ValueError(f'{name}: {len(spreads)} BN spreads for '
+                                 f'{len(bns)} BNs')
+            for (path, bn), spread in zip(bns, spreads):
+                scale(path, bn, spread)
+            return net
+    net.bn_spreads, net.bias_ratios = {}, {}
+
+    def record(path):
+        def hook(bn, args):
+            x = args[0].detach().double()
+            spread = _f(x.std())
+            net.bn_spreads[path] = spread
+            scale(path, bn, spread)
+            inv = (bn.weight / torch.sqrt(bn.running_var + bn.eps)).double()
+            bias = bn.bias.double() - bn.running_mean.double() * inv
+            net.bias_ratios[path] = float(bias.pow(2).mean().sqrt()
+                                          / (x * inv.view(1, -1, 1, 1)).std())
+        return hook
+
+    for path, bn in bns:
+        bn.register_forward_pre_hook(record(path))
     return net
+
+
+def network_input(name: str) -> torch.Tensor:
+    """The input of weight file ``name``'s network on the frame the BN
+    spreads are measured on (``smooth_frames(1, SPREAD_FRAME_SEED)``):
+    resized (bilinear) to the resolution of the first config that runs it
+    and normalized, or letterboxed for a detector."""
+    rgb = torch.from_numpy(np.ascontiguousarray(
+        smooth_frames(1, SPREAD_FRAME_SEED)[..., ::-1]))
+    kind = WEIGHTS[name]['kind']
+    if kind in ('darknet', 'yolov5'):
+        from simple_hrnet_tpu_torch.detectors.yolov3 import letterbox_device
+        return letterbox_device(rgb, 640 if kind == 'yolov5' else 416)
+    from simple_hrnet_tpu_torch.ops.image import INV255_STD, MEAN255
+    res = next(cfg['res'] for cfg in CONFIGS.values()
+               if cfg['pose'] == name)
+    x = torch.nn.functional.interpolate(
+        rgb.permute(0, 3, 1, 2).float(), size=tuple(res), mode='bilinear',
+        align_corners=False).permute(0, 2, 3, 1)
+    return (x - torch.from_numpy(MEAN255)) * torch.from_numpy(INV255_STD)
+
+
+def measure_bn_spreads(name: str) -> tuple:
+    """The spread of each BN's input (in ``_bn_modules`` order) in one
+    forward pass of the network on ``network_input(name)``, each BN's
+    statistics drawn from the spreads before it; and in the same order
+    each folded bias's RMS over its folded conv's output spread."""
+    net = seeded_network(name, measure=True)
+    x = network_input(name)
+    with torch.no_grad():
+        if WEIGHTS[name]['kind'] in ('darknet', 'yolov5'):
+            net(x, x.shape[1])
+        else:
+            net(x)
+    paths = [p for p, _ in _bn_modules(net)]
+    missing = [p for p in paths if p not in net.bn_spreads]
+    if missing:
+        raise ValueError(f'{name}: BNs that never ran: {missing[:4]}')
+    return ([net.bn_spreads[p] for p in paths],
+            np.asarray([net.bias_ratios[p] for p in paths]))
 
 
 def fingerprint(net: torch.nn.Module) -> str:
@@ -313,6 +490,21 @@ def zero_chain(hrnet: torch.nn.Module, stage: str = 'stage3'):
         lambda _m, _args, out: torch.zeros_like(out))
 
 
+@contextlib.contextmanager
+def plain_stem_int8():
+    """Inside, a port YOLOv3 built with ``dtype='int8'`` also quantizes
+    the convs that the JAX package's phase stem keeps out of its int8
+    policy (``darknet.phase_stem_convs`` names none): YOLOv3-416's
+    ``conv_1``, the port's set before ROADMAP C11's repair. A control."""
+    from simple_hrnet_tpu_torch.detectors import darknet
+    real = darknet.phase_stem_convs
+    darknet.phase_stem_convs = lambda blocks: []
+    try:
+        yield
+    finally:
+        darknet.phase_stem_convs = real
+
+
 def detector_rows(detector, frames: np.ndarray) -> list:
     """Per frame the detector's valid rows (x1, y1, x2, y2, score), in its
     score order."""
@@ -320,6 +512,18 @@ def detector_rows(detector, frames: np.ndarray) -> list:
     rows, valid = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
                    for a in detector.detect_padded(rgb))
     return [rows[i][valid[i]][:, :5] for i in range(len(frames))]
+
+
+def quantized_scales(model) -> dict:
+    """A port facade's quantized convs: per network ('pose', and
+    'detector' where there is one) the sorted activation scales of its
+    ``QConv2d`` modules."""
+    from simple_hrnet_tpu_torch.models.layers import QConv2d
+    nets = {'pose': model.model}
+    if model.detector is not None:
+        nets['detector'] = model.detector.net
+    return {k: sorted(float(m.ascale) for m in net.modules()
+                      if isinstance(m, QConv2d)) for k, net in nets.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -450,18 +654,98 @@ def heatmap_distance(outs: list, frames: list) -> tuple:
             float(ab.mean()))
 
 
+def _nearest_order(golden_boxes, boxes: np.ndarray) -> list:
+    """Each golden box in order takes the unmatched run box nearest to it
+    (largest corner difference): the run indices in golden order."""
+    g = np.asarray(golden_boxes, np.float64).reshape(-1, 4)
+    d = np.abs(g[:, None, :] - np.asarray(boxes, np.float64)[None, :, :4]
+               ).max(axis=-1)
+    order = []
+    for row in d:
+        row = row.copy()
+        row[order] = np.inf
+        order.append(int(row.argmin()))
+    return order
+
+
+def match_people(outs: list, gframes: list, rows=None) -> tuple:
+    """``outs`` (and the detector's ``rows``) with each frame's people in
+    the golden's order by ``_nearest_order`` on the facade boxes (the
+    detector rows on their own boxes); frames whose people counts differ
+    are left as they are (``compare`` fails them first)."""
+    new_outs, new_rows = [], None if rows is None else []
+    for i, ((hm, bx, pts), f) in enumerate(zip(outs, gframes)):
+        if f['people'] and pts.shape[0] == f['people']:
+            o = _nearest_order(f['boxes'], bx)
+            hm, bx, pts = hm[o], bx[o], pts[o]
+        new_outs.append((hm, bx, pts))
+        if rows is not None:
+            r = rows[i]
+            if f['people'] and len(r) >= f['people']:
+                kept = r[:f['people']]
+                r = np.concatenate([kept[_nearest_order(
+                    np.asarray(f['det'])[:, :4], kept)], r[f['people']:]])
+            new_rows.append(r)
+    return new_outs, new_rows
+
+
+def distances(outs: list, gframes: list, limit: float, rows=None) -> dict:
+    """A run's distances to golden frames ``gframes`` (people in the same
+    order): people, box and detector-box px, heatmap distances (of max
+    and absolute), decisive joints at heatmap limit ``limit`` and their
+    keypoint px, confidences (of max), the within-1 px share."""
+    out = {'people': [int(o[2].shape[0]) for o in outs]}
+    if out['people'] != [f['people'] for f in gframes]:
+        return out
+    out['box_err_px'] = max([float(np.abs(
+        o[1] - np.asarray(f['boxes'])).max())
+        for o, f in zip(outs, gframes) if f['people']] or [0.0])
+    if rows is not None:
+        out['det_box_err_px'] = max([float(np.abs(
+            r[:f['people'], :4] - np.asarray(f['det'])[:, :4]).max())
+            for r, f in zip(rows, gframes) if f['people']] or [0.0])
+    hm_max, hm_mean, abs_max, abs_mean = heatmap_distance(outs, gframes)
+    out.update(heatmap_rel_max=hm_max, heatmap_rel_mean=hm_mean,
+               heatmap_abs_max=abs_max, heatmap_abs_mean=abs_mean)
+    xy, conf, dec, near = [], [], [], []
+    for (_, _, pts), f in zip(outs, gframes):
+        g = np.asarray(f['keypoints'], np.float64).reshape(pts.shape)
+        for p, person in enumerate(f['joints']):
+            d = decisive(person['stats'], limit)
+            dxy = np.abs(pts[p, :, :2] - g[p, :, :2]).max(axis=1)
+            xy.append(dxy[d])
+            near.append(dxy <= 1.0)
+            scale = np.asarray([s[2] for s in person['stats']])
+            conf.append(np.abs(pts[p, :, 2] - g[p, :, 2]) / scale)
+            dec.append(d)
+    dec = np.concatenate(dec) if dec else np.zeros(0, bool)
+    out.update(joints=int(dec.size), decisive=int(dec.sum()),
+               within_1px=float(np.concatenate(near).mean()) if near
+               else 1.0,
+               keypoint_err_px=float(np.concatenate(xy).max())
+               if dec.any() else 0.0,
+               conf_rel_err=float(np.concatenate(conf).max())
+               if conf else 0.0)
+    return out
+
+
 def compare(outs: list, golden: dict, dtype: str, place: str,
-            rows=None, quantum=None, frames=None) -> dict:
+            rows=None, quantum=None, frames=None, scales=None) -> dict:
     """Hold ``run_facade`` outputs (and the detector's ``rows``) against
     ``golden``'s ``dtype`` entry, frames ``frames`` (a slice; None: all).
     f32: same people in order, boxes and detector boxes within
     ``box_px``, heatmap values within the place's limit of max, decisive
     keypoints within ``keypoint_px`` and every confidence within the
-    heatmap limit. bf16 / int8: the heatmap distance at most the JAX
-    package's own distance between that dtype and f32 here
-    (``jax_vs_f32``); with ``quantum`` (int8 on the CPU) every value also
-    within 4 quanta and the mean within one. Returns the distances and
-    ``ok``; ``failures`` says which gates failed."""
+    heatmap limit. bf16 / int8: people matched by box to the golden's
+    (``match_people``) where there is a detector, their boxes within the
+    box bound; the heatmap distance within LOW_PRECISION_FACTOR times the
+    JAX package's own dtype-to-f32 distance (bf16) or INT8_SPREAD_FACTOR
+    times its int8 spread (int8; ``bound_old`` is the bf16 rule's bound);
+    with ``quantum`` (int8 on the CPU) every value also within 4 quanta
+    and the mean within one; with ``scales`` (int8, ``quantized_scales``
+    of the run's facade) the quantized set that of the JAX package's
+    (``INT8_SCALE_REL``). Returns the distances and ``ok``; ``failures``
+    says which gates failed."""
     lim = LIMITS[place]
     entry = golden['dtypes'][dtype]
     gframes = entry['frames'][frames or slice(None)]
@@ -472,49 +756,43 @@ def compare(outs: list, golden: dict, dtype: str, place: str,
         fails.append(f'{len(outs)} frames against {len(gframes)}')
         out['ok'] = False
         return out
-    people = [int(o[2].shape[0]) for o in outs]
+    low = dtype != 'f32'
+    if low and any('det' in f for f in gframes):
+        outs, rows = match_people(outs, gframes, rows)
+    out.update(distances(outs, gframes, lim['heatmap'], rows))
     want = [f['people'] for f in gframes]
-    out['people'] = people
-    if people != want:
-        fails.append(f'people {people} against {want}')
+    if out['people'] != want:
+        fails.append(f'people {out["people"]} against {want}')
         out['ok'] = False
         return out
-    box_err = max([float(np.abs(o[1] - np.asarray(f['boxes'])).max())
-                   for o, f in zip(outs, gframes) if f['people']] or [0.0])
-    out['box_err_px'] = box_err
-    if box_err > lim['box_px']:
-        fails.append(f'boxes differ by {box_err} px')
-    if rows is not None:
-        det = [float(np.abs(r[:f['people'], :4]
-                            - np.asarray(f['det'])[:, :4]).max())
-               for r, f in zip(rows, gframes) if f['people']]
-        out['det_box_err_px'] = max(det or [0.0])
-        if out['det_box_err_px'] > lim['box_px']:
-            fails.append(f'detector boxes differ by '
-                         f'{out["det_box_err_px"]} px')
-    hm_max, hm_mean, abs_max, abs_mean = heatmap_distance(outs, gframes)
-    out.update(heatmap_rel_max=hm_max, heatmap_rel_mean=hm_mean,
-               heatmap_abs_max=abs_max, heatmap_abs_mean=abs_mean)
-    xy, conf, dec, near = [], [], [], []
-    for (_, _, pts), f in zip(outs, gframes):
-        g = np.asarray(f['keypoints'], np.float64).reshape(pts.shape)
-        for p, person in enumerate(f['joints']):
-            d = decisive(person['stats'], lim['heatmap'])
-            dxy = np.abs(pts[p, :, :2] - g[p, :, :2]).max(axis=1)
-            xy.append(dxy[d])
-            near.append(dxy <= 1.0)
-            scale = np.asarray([s[2] for s in person['stats']])
-            conf.append(np.abs(pts[p, :, 2] - g[p, :, 2]) / scale)
-            dec.append(d)
-    dec = np.concatenate(dec) if dec else np.zeros(0, bool)
-    out.update(joints=int(dec.size), decisive=int(dec.sum()),
-               within_1px=float(np.concatenate(near).mean()) if near
-               else 1.0)
-    if dtype == 'f32':
-        out['keypoint_err_px'] = float(np.concatenate(xy).max()) \
-            if dec.any() else 0.0
-        out['conf_rel_err'] = float(np.concatenate(conf).max()) \
-            if conf else 0.0
+    box_bound = det_bound = lim['box_px']
+    if low and 'jax_vs_f32_box_px' in entry:
+        box_bound = max(LOW_PRECISION_BOX_FLOOR_PX, LOW_PRECISION_FACTOR
+                        * entry['jax_vs_f32_box_px'])
+        det_bound = max(lim['box_px'], LOW_PRECISION_FACTOR
+                        * entry['jax_vs_f32_det_px'])
+        out.update(box_bound_px=box_bound, det_bound_px=det_bound)
+    if scales is not None:
+        for net, want in entry['jax_scales'].items():
+            got = scales.get(net, [])
+            out[f'quantized_{net}'] = f'{len(got)}/{len(want)}'
+            if len(got) != len(want):
+                fails.append(f'{net}: {len(got)} quantized convs against '
+                             f'the JAX package\'s {len(want)}')
+                continue
+            err = max([abs(a - b) / b for a, b in zip(got, want)] or [0.0])
+            out[f'scale_rel_err_{net}'] = err
+            if err > INT8_SCALE_REL:
+                fails.append(f'{net}: activation scales differ by {err} '
+                             f'> {INT8_SCALE_REL}')
+    if out['box_err_px'] > box_bound:
+        fails.append(f'boxes differ by {out["box_err_px"]} px '
+                     f'> {box_bound}')
+    if rows is not None and out['det_box_err_px'] > det_bound:
+        fails.append(f'detector boxes differ by {out["det_box_err_px"]} '
+                     f'px > {det_bound}')
+    hm_max = out['heatmap_rel_max']
+    if not low:
         if hm_max > lim['heatmap']:
             fails.append(f'heatmaps differ by {hm_max} of max '
                          f'> {lim["heatmap"]}')
@@ -525,27 +803,39 @@ def compare(outs: list, golden: dict, dtype: str, place: str,
             fails.append(f'confidences differ by {out["conf_rel_err"]} of '
                          f'max')
     else:
-        bound = LOW_PRECISION_FACTOR * entry['jax_vs_f32']
+        del out['keypoint_err_px'], out['conf_rel_err']
+        old = LOW_PRECISION_FACTOR * entry['jax_vs_f32']
+        if dtype == 'int8':
+            bound = INT8_SPREAD_FACTOR * entry['jax_int8_spread']
+            out['bound_old'] = old
+            rule = (f'{INT8_SPREAD_FACTOR} times the JAX package\'s own '
+                    f'int8 spread')
+        else:
+            bound = old
+            rule = (f'{LOW_PRECISION_FACTOR} times the JAX package\'s own '
+                    f'{dtype}-to-f32 distance')
         out['bound'] = bound
         if hm_max > bound:
-            fails.append(f'heatmap distance {hm_max} > {bound}, '
-                         f'{LOW_PRECISION_FACTOR} times the JAX package\'s '
-                         f'own {dtype}-to-f32 distance')
+            fails.append(f'heatmap distance {hm_max} > {bound}, {rule}')
         if quantum is not None:
-            out['quanta_max'] = abs_max / quantum
-            out['quanta_mean'] = abs_mean / quantum
-            if abs_max > 4 * quantum or abs_mean > quantum:
-                fails.append(f'int8 heatmaps differ by {abs_max / quantum} '
-                             f'quanta (mean {abs_mean / quantum})')
+            out['quanta_max'] = out['heatmap_abs_max'] / quantum
+            out['quanta_mean'] = out['heatmap_abs_mean'] / quantum
+            if out['heatmap_abs_max'] > 4 * quantum or \
+                    out['heatmap_abs_mean'] > quantum:
+                fails.append(f'int8 heatmaps differ by {out["quanta_max"]} '
+                             f'quanta (mean {out["quanta_mean"]})')
     out['ok'] = not fails
     return out
 
 
 def report(r: dict) -> str:
     """One line of a comparison's distances."""
-    keys = ('people', 'box_err_px', 'det_box_err_px', 'heatmap_rel_max',
-            'heatmap_rel_mean', 'bound', 'keypoint_err_px', 'conf_rel_err',
-            'decisive', 'joints', 'within_1px', 'quanta_max', 'quanta_mean')
+    keys = ('people', 'box_err_px', 'box_bound_px', 'det_box_err_px',
+            'det_bound_px', 'heatmap_rel_max', 'heatmap_rel_mean', 'bound',
+            'bound_old', 'keypoint_err_px', 'conf_rel_err', 'decisive',
+            'joints', 'within_1px', 'quanta_max', 'quanta_mean',
+            'quantized_pose', 'scale_rel_err_pose', 'quantized_detector',
+            'scale_rel_err_detector')
     parts = [f'{k}={r[k]:.3e}' if isinstance(r[k], float) else f'{k}={r[k]}'
              for k in keys if k in r]
     return (f'[{r["config"]} {r["dtype"]} {r["place"]}] '
@@ -766,12 +1056,79 @@ def _jax_cut_scores(config, paths, frames, rows, jax_facade):
     return [float(r[cap, 4]) if len(r) > cap else thresh for r in rows]
 
 
-def generate(config: str, paths: dict, fps: dict, commit: str,
-             seed=None) -> dict:
-    """The golden of ``config`` from the JAX facade (CPU, x64 for the
-    PIL-exact crops, as the port's tests run it)."""
+@contextlib.contextmanager
+def _jax_amax_moved():
+    """Inside, every JAX facade built with ``dtype='int8'`` moves each
+    calibration amax of its pose model by a whole number of f32 ulps in
+    [-INT8_AMAX_ULPS, INT8_AMAX_ULPS], drawn in calibration order from
+    INT8_AMAX_SEED."""
+    from simple_hrnet_tpu import SimpleHRNet as JaxSimpleHRNet
+    real = JaxSimpleHRNet._calibrate_int8
+
+    def moved(self, apply_fn, params):
+        amax = real(self, apply_fn, params)
+        keys = list(amax)
+        bits = np.asarray([amax[k] for k in keys], np.float32).view(np.int32)
+        step = np.random.default_rng(INT8_AMAX_SEED).integers(
+            -INT8_AMAX_ULPS, INT8_AMAX_ULPS + 1, len(keys))
+        vals = (bits + step.astype(np.int32)).view(np.float32)
+        return {k: float(v) for k, v in zip(keys, vals)}
+
+    JaxSimpleHRNet._calibrate_int8 = moved
+    try:
+        yield
+    finally:
+        JaxSimpleHRNet._calibrate_int8 = real
+
+
+def _jax_scales(model) -> dict:
+    """``quantized_scales`` of a JAX facade: the sorted ``ascale`` of every
+    ``kernel_q`` node of its pose params (the plain tree beside a packed
+    one) and its detector's."""
+    def walk(tree, out):
+        if isinstance(tree, dict):
+            if 'kernel_q' in tree:
+                out.append(float(np.asarray(tree['ascale'])))
+            for v in tree.values():
+                walk(v, out)
+        return out
+
+    params = model.params
+    nets = {'pose': params['p'] if 'packed' in params else params}
+    if model.detector is not None:
+        nets['detector'] = model.detector.params
+    return {k: _f(sorted(walk(t, []))) for k, t in nets.items()}
+
+
+def _jax_run(config, paths, dtype, frames, **extra):
+    """The JAX facade's outputs, detector rows and the facade."""
     import jax
     from simple_hrnet_tpu import SimpleHRNet as JaxSimpleHRNet
+    cfg = CONFIGS[config]
+    kw = facade_kwargs(config, paths, dtype)
+    kw.update(extra)
+    model = JaxSimpleHRNet(cfg['c'], JOINTS, paths[cfg['pose']], **kw)
+    with jax.enable_x64(True):
+        outs = run_facade(model, config, frames)
+        rows = detector_rows(model.detector, frames) if cfg['detector'] \
+            else None
+    return outs, rows, model
+
+
+def _matched_distances(outs, rows, gframes) -> dict:
+    """``distances`` of a JAX run to JAX golden frames of the same
+    function, people matched by box where there is a detector."""
+    if rows is not None:
+        outs, rows = match_people(outs, gframes, rows)
+    return distances(outs, gframes, LIMITS['cpu']['heatmap'], rows)
+
+
+def generate(config: str, paths: dict, fps: dict, commit: str,
+             seed=None, dtypes=None) -> dict:
+    """The golden of ``config`` (its ``dtypes``, default all) from the JAX
+    facade (CPU, x64 for the PIL-exact crops, as the port's tests run
+    it)."""
+    import jax
 
     cfg = CONFIGS[config]
     frames = config_frames(config, seed)
@@ -785,36 +1142,69 @@ def generate(config: str, paths: dict, fps: dict, commit: str,
               'dtypes': {}}
     f32 = None
     for dtype, n in cfg['dtypes'].items():
+        if dtypes is not None and dtype not in dtypes:
+            continue
         t0 = time.perf_counter()
-        model = JaxSimpleHRNet(cfg['c'], JOINTS, paths[cfg['pose']],
-                               **facade_kwargs(config, paths, dtype))
         fr = frames[:n] if n else frames
-        with jax.enable_x64(True):
-            outs = run_facade(model, config, fr)
-            rows = cuts = None
-            if cfg['detector']:
-                rows = detector_rows(model.detector, fr)
+        outs, rows, model = _jax_run(config, paths, dtype, fr)
+        cuts = None
+        if rows is not None:
+            with jax.enable_x64(True):
                 cuts = _jax_cut_scores(config, paths, fr, rows, model)
         entry = {'frames': summarize(outs, rows, cuts)}
+        note = ''
         if dtype == 'f32':
             f32 = entry
             entry['decisive_share'] = {p: decisive_share(entry['frames'], p)
                                        for p in LIMITS}
+            note = f'decisive share {entry["decisive_share"]}'
         else:
-            d = compare(outs, {'config': config, 'dtypes': {
-                'f32': {'frames': f32['frames'][:len(fr)]}}}, 'f32', 'cpu')
+            d = _matched_distances(outs, rows, f32['frames'][:len(fr)])
+            if 'heatmap_rel_max' not in d:
+                raise ValueError(
+                    f'[{config} {dtype}] the JAX package\'s {dtype} run '
+                    f'keeps people {d["people"]}, its f32 run '
+                    f'{[f["people"] for f in f32["frames"][:len(fr)]]}: '
+                    f'choose another frame seed')
             entry['jax_vs_f32'] = d['heatmap_rel_max']
             entry['jax_vs_f32_mean'] = d['heatmap_rel_mean']
             entry['jax_vs_f32_within_1px'] = d['within_1px']
+            if rows is not None:
+                entry['jax_vs_f32_box_px'] = d['box_err_px']
+                entry['jax_vs_f32_det_px'] = d['det_box_err_px']
+            note = (f'JAX {dtype} vs f32 {entry["jax_vs_f32"]:.3e} of max, '
+                    f'{entry["jax_vs_f32_within_1px"]:.3f} within 1 px'
+                    + (f', boxes {d["box_err_px"]:.3f} px, detector boxes '
+                       f'{d["det_box_err_px"]:.3f} px' if rows is not None
+                       else ''))
+        if dtype == 'int8':
+            entry['jax_scales'] = _jax_scales(model)
+            spreads = {}
+            if cfg.get('model_name', 'HRNet') == 'HRNet':
+                o, r, _ = _jax_run(config, paths, dtype, fr,
+                                   use_fused_kernels=False)
+                spreads['plain_graph'] = _matched_distances(
+                    o, r, entry['frames'])
+            with _jax_amax_moved():
+                o, r, _ = _jax_run(config, paths, dtype, fr)
+            spreads['amax_moved'] = _matched_distances(o, r,
+                                                       entry['frames'])
+            for k, d in spreads.items():
+                if 'heatmap_rel_max' not in d:
+                    raise ValueError(f'[{config} int8] {k}: people '
+                                     f'{d["people"]}: choose another frame '
+                                     f'seed')
+            entry['jax_int8_spreads'] = {k: d['heatmap_rel_max']
+                                         for k, d in spreads.items()}
+            entry['jax_int8_spread'] = max(
+                entry['jax_int8_spreads'].values())
+            counts = {k: len(v) for k, v in entry['jax_scales'].items()}
+            note += (f'; int8 spread {entry["jax_int8_spreads"]}; '
+                     f'quantized convs {counts}')
         golden['dtypes'][dtype] = entry
         print(f'[{config} {dtype}] {len(fr)} frames, people '
               f'{[f["people"] for f in entry["frames"]]}, '
-              f'{time.perf_counter() - t0:.1f} s; '
-              + (f'decisive share {entry["decisive_share"]}'
-                 if dtype == 'f32' else
-                 f'JAX {dtype} vs f32 {entry["jax_vs_f32"]:.3e} of max, '
-                 f'{entry["jax_vs_f32_within_1px"]:.3f} within 1 px'),
-              flush=True)
+              f'{time.perf_counter() - t0:.1f} s; {note}', flush=True)
         if dtype == 'f32' and min(entry['decisive_share'].values()) < \
                 DECISIVE_SHARE:
             print(f'[{config}] fewer than {DECISIVE_SHARE:.0%} of the '
@@ -830,8 +1220,49 @@ def main(argv=None) -> int:
                     help='configs to regenerate (default: all)')
     ap.add_argument('--seed-search', type=int, default=0, metavar='K',
                     help='print each config\'s decisive share at its frame '
-                    'seed and the next K-1 seeds; write nothing')
+                    'seed and the next K-1 seeds (f32 only); write nothing')
+    ap.add_argument('--bn-spreads', action='store_true',
+                    help='measure every BN\'s input spread (torch, no JAX), '
+                    'write them to port_bn_spreads.json and print each '
+                    'network\'s folded bias over its conv output spread; '
+                    'a new set changes every fingerprint, so regenerate '
+                    'the goldens after it')
+    ap.add_argument('--cpu-check', nargs=2, metavar=('CONFIG', 'DTYPE'),
+                    help='hold the port on the CPU against one golden pair '
+                    '(its frames, the CPU limits; torch, no JAX) and print '
+                    'the comparison: for the pairs the CPU tests leave to '
+                    'the card')
     args = ap.parse_args(argv)
+
+    if args.cpu_check:
+        config, dtype = args.cpu_check
+        n = CONFIGS[config]['dtypes'][dtype]
+        frames = config_frames(config)[:n]
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {k: v[0] for k, v in
+                     write_weights(tmp, config_weights(config)).items()}
+            model = port_facade(config, paths, dtype)
+            outs = run_facade(model, config, frames)
+            rows = (detector_rows(model.detector, frames)
+                    if model.detector is not None else None)
+        r = compare(outs, load_golden(config), dtype, 'cpu', rows=rows,
+                    frames=slice(0, len(frames)),
+                    scales=quantized_scales(model) if dtype == 'int8'
+                    else None)
+        print(report(r), flush=True)
+        return 0 if r['ok'] else 1
+
+    if args.bn_spreads:
+        spreads = {}
+        for name in WEIGHTS:
+            spreads[name], r = measure_bn_spreads(name)
+            print(f'{name}: {len(r)} folded convs, bias RMS over output '
+                  f'spread: min {r.min():.3f}, median {np.median(r):.3f}, '
+                  f'max {r.max():.3f}', flush=True)
+        with open(BN_SPREADS_FILE, 'w') as f:
+            json.dump(spreads, f, separators=(',', ':'))
+            f.write('\n')
+        return 0
 
     # the JAX facade's Pallas kernels run (interpreted), as on its TPU and
     # as the JAX package's kernel tests run them, not their XLA fallbacks
@@ -851,7 +1282,8 @@ def main(argv=None) -> int:
             if args.seed_search:
                 base = CONFIGS[config]['frame_seed']
                 for s in range(base, base + args.seed_search):
-                    g = generate(config, paths, fps, commit, seed=s)
+                    g = generate(config, paths, fps, commit, seed=s,
+                                 dtypes=('f32',))
                     print(f'[{config}] frame seed {s}: decisive share '
                           f'{g["dtypes"]["f32"]["decisive_share"]}')
                 continue
