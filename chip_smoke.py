@@ -5,8 +5,9 @@ Run from the repository root on a host with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
-  1. build the five CUDA kernels from ``simple_hrnet_tpu_torch/csrc`` (one
-     nvcc per source, all at once) and print the build time;
+  1. build the six CUDA kernels from ``simple_hrnet_tpu_torch/csrc`` (one
+     nvcc per source, all at once: K1-K3, B3, B4 and K4, the detectors'
+     activation kernel) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (every batch phases 4, 5 and 7 give the pose model,
      W48's from 1 to 64): NMS
@@ -25,7 +26,11 @@ Phases (any failure exits nonzero):
      Winograd and int8 chains at W32 batch 32, the Winograd chain also
      beside K2 at its shape, and failing unless it beats cuDNN's chain);
      check the int8 conv outside the chains (``torch._int_mm``) against
-     its CPU integer path;
+     its CPU integer path; hold K4 (sigmoid, SiLU, mish) against its plain
+     version bit for bit at every YOLOv5m-640 activation shape at batches
+     1, 4 and 8 in bf16 and f32, with PyTorch's one-rounding calls as
+     controls that must differ, read it against the CPU's plain version,
+     and time it from a CUDA graph beside ``F.silu`` and its byte bound;
   3. HRNet-W48 forward at 384x288, kernels against the plain path (f32);
   4. three main paths, each ``SimpleHRNet(c, 17, <.pth>, resolution,
      multiperson=True, yolo_model_def='yolov3', dtype)`` from a seeded
@@ -69,7 +74,9 @@ Phases (any failure exits nonzero):
      keypoints whose heatmap peak is clear of its runner-up); in bf16 and
      int8 (PoseResNet's policy convs in int8, YOLOv5 bf16) ``predict`` runs
      on 1 and 8 frames, timed and profiled, with K1 launched once a detect
-     chunk and no other kernel; in bf16 after ``warmup`` one chunked
+     chunk, K4 once each of YOLOv5m's SiLUs a chunk and no other kernel,
+     and no PyTorch SiLU kernel in the profile; in bf16 after ``warmup``
+     one chunked
      ``predict_stream`` (4 frames a launch) runs as phase 5 runs its modes,
      dispatch guarded, and is timed over 64 frames;
   7. the single-person path: ``SimpleHRNet(c, 17, <.pth>, resolution,
@@ -188,8 +195,9 @@ Phases (any failure exits nonzero):
      controls (other frames' golden, a zeroed chain in f32, bf16 and int8,
      the PoseResNet-50 bf16 facade against its int8 golden, and YOLOv3 +
      W32 int8 with ``conv_1`` quantized as before ROADMAP C11's repair)
-     must fail, their readings printed beside their bounds; all five
-     kernels must have run.
+     must fail, their readings printed beside their bounds; all six
+     kernels must have run (K4 on the YOLOv5m stream, once a SiLU of each
+     detect chunk).
      Then the int8 trace: the W32 single-person int8 facade built on the
      card and on the CPU in this process, traced stage by stage
      (``torch_goldens.int8_trace``), with the frames' difference in counts,
@@ -924,6 +932,116 @@ def check_qconv(dev):
           'path), bitwise, strides 1 and 2', flush=True)
 
 
+# K4's shapes: the distinct activation shapes (channels, side) of
+# YOLOv5m-640 (widths 48-768, strides 2-32), at the batches of phase 6's
+# detects (one frame; the stack of 8) and its stream's chunks (4 frames)
+ACT_SHAPES = ((48, 320), (96, 160), (48, 160), (192, 80), (96, 80),
+              (384, 40), (192, 40), (768, 20), (384, 20))
+ACT_BATCHES = (1, 4, 8)
+# the ops of each activation's HLO (ops/activation.py), for its bound
+ACT_OPS = {'sigmoid': 4, 'silu': 5, 'mish': 9}
+# phase 2 times K4 at the largest activation of the 8-frame detect
+ACT_TIME_SHAPE = (8, 48, 320, 320)
+
+
+def _act_input(dev, dtype, shape, seed):
+    """Conv-output-like values (normal, sd 3), channels-last as the
+    detectors' convs leave them on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * 3.0
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _act_once(act):
+    """PyTorch's own call for ``act``, which rounds once: the control."""
+    return {'sigmoid': torch.sigmoid, 'silu': F.silu,
+            'mish': lambda t: t * torch.tanh(F.softplus(t))}[act]
+
+
+def _differing(a, b):
+    """Elements of ``a`` and ``b`` that differ (NaN equal to NaN)."""
+    return int(((a != b) & ~(torch.isnan(a) & torch.isnan(b))).sum().item())
+
+
+def check_activation(dev, rec):
+    """K4 against its plain version on the card, bit for bit, at every
+    YOLOv5m-640 activation shape and batch, in bf16 and f32, for sigmoid,
+    SiLU and mish; PyTorch's one-rounding calls as controls (bf16), which
+    must differ; the card's K4 against the CPU's plain version (the JAX
+    function on the CPU) read, not gated; timed from a CUDA graph beside
+    ``F.silu`` and its byte bound."""
+    from simple_hrnet_tpu_torch.ops import activation as P
+    from simple_hrnet_tpu_torch.ops.cuda import activation as K
+
+    checked, controls = 0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (c, side) in enumerate(ACT_SHAPES):
+            for bsz in ACT_BATCHES:
+                x = _act_input(dev, dtype, (bsz, c, side, side), 100 + i)
+                for act in P.PLAIN:
+                    got, want = K.activation(x, act), P.PLAIN[act](x)
+                    diff = _differing(got, want)
+                    if diff or got.stride() != x.stride():
+                        raise AssertionError(
+                            f'K4 {act} {dtype} {tuple(x.shape)}: {diff} '
+                            f'elements differ from the plain version')
+                    checked += 1
+                    if dtype == torch.bfloat16 and (c, side) == (48, 320) \
+                            and bsz == 1:
+                        controls[act] = _differing(got, _act_once(act)(x)) \
+                            / x.numel()
+    torch.cuda.synchronize()
+    if len(controls) != len(P.PLAIN) or not all(controls.values()):
+        raise AssertionError(f'K4 controls: a one-rounding PyTorch call '
+                             f'equals the kernel ({controls})')
+    x = _act_input(dev, torch.bfloat16, (1, 48, 320, 320), 100)
+    cpu = {act: _differing(K.activation(x, act).cpu(),
+                           P.PLAIN[act](x.cpu())) for act in P.PLAIN}
+    print(f'K4 activation: {checked} (activation, dtype, shape) cases equal '
+          f'their plain version bit for bit (bf16 and f32, '
+          f'{len(ACT_SHAPES)} YOLOv5m-640 shapes at batches {ACT_BATCHES}); '
+          f'controls (PyTorch\'s one rounding, bf16, share differing) '
+          f'{ {k: round(v, 4) for k, v in controls.items()} }; card K4 '
+          f'against the CPU\'s plain version, bf16 (1, 48, 320, 320), '
+          f'elements differing {cpu}', flush=True)
+
+    timings = {}
+    for act, dtype in (('silu', torch.bfloat16), ('sigmoid', torch.bfloat16),
+                       ('mish', torch.bfloat16), ('silu', torch.float32)):
+        x = _act_input(dev, dtype, ACT_TIME_SHAPE, 7)
+        per_call = 2 * nbytes(x)
+        sets = input_sets(x, per_call, lambda a: a.clone())
+        ms = graph_ms([lambda a=a: K.activation(a, act) for a in sets])
+        it = iter(range(1 << 30))
+        plain_ms = cuda_ms(lambda: P.PLAIN[act](sets[next(it) % len(sets)]),
+                           iters=10)
+        lib_ms = graph_ms([lambda a=a: _act_once(act)(a) for a in sets]) \
+            if act == 'silu' else None
+        b_ms, b_by = bound(per_call, ACT_OPS[act] * x.numel(),
+                           torch.float32)
+        name = f'{act} {"bf16" if dtype == torch.bfloat16 else "f32"}'
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             share_of_bound=b_ms / ms, input_sets=len(sets))
+        print(f'K4 activation {name} {ACT_TIME_SHAPE}: {ms:.4f} ms (plain '
+              f'{plain_ms:.4f}, F.silu {"-" if lib_ms is None else f"{lib_ms:.4f}"}, '
+              f'bound {b_ms:.5f} {b_by}, {100 * b_ms / ms:.1f}% of bound)',
+              flush=True)
+    t = timings['silu bf16']
+    rec['activation'] = dict(
+        name='activation', route='cuda',
+        source='simple_hrnet_tpu_torch/csrc/activation.cu',
+        replaces='simple_hrnet_tpu/detectors/yolov5.py:83', port_only=True,
+        replaces_note='no pl.pallas_call: the XLA fusion of jax.nn.silu '
+                      '(and darknet.py:429-433 sigmoid, mish, swish)',
+        max_abs_err=0.0, tolerance='exact', control_share=controls,
+        cpu_plain_differing=cpu, ms=t['ms'], plain_ms=t['plain_ms'],
+        bound_ms=t['bound_ms'], bound_by=t['bound_by'],
+        library_ms=t['library_ms'],
+        shape=f'{ACT_TIME_SHAPE} silu bf16', timings=timings,
+        checked=checked)
+
+
 def check_hrnet_forward(dev, pth):
     """W48-384x288 forward on 2 crops in f32: kernels vs plain modules."""
     from simple_hrnet_tpu_torch.models import convert, hrnet
@@ -1057,10 +1175,12 @@ def run_main_path(dev, path, pth, weights, counters):
     # every stage module runs its chain once: 8 launches per pose forward
     want = {k: 8 * len(seen) if k == chain else 0 for k in CHAINS}
     got = {k: launches[k] for k in CHAINS}
-    if got != want or launches['nms'] == 0 or launches['fuse_up'] == 0:
+    if got != want or launches['nms'] == 0 or launches['fuse_up'] == 0 or \
+            launches['activation']:
         raise AssertionError(f'[{name}] launches {launches} over '
                              f'{len(seen)} pose forwards; want chains {want} '
-                             f'and NMS and the fuse launched')
+                             f'and NMS and the fuse launched, K4 not (YOLOv3 '
+                             f'runs leaky)')
     print(f'phase 4 [{name}]: people {n1} (single) / {n8} (stack of 8); '
           f'pose batches {seen}; launches per predict: 1 frame {single}, '
           f'8 frames {stack}', flush=True)
@@ -1108,6 +1228,7 @@ PORT_KERNELS = {
     'B3 wino_chain': ('wino_conv_bf16',),
     'B4 int8_chain': ('int8_conv_tc', 'int8_quantize'),
     'K3 fuse_up': ('fuse_up_kernel',),
+    'K4 activation': ('activation_kernel',),
 }
 
 
@@ -1147,12 +1268,18 @@ def device_profile(fn):
     return sum(r[0] for r in rows), rows, port
 
 
-def profile_predict(label, model, frames):
+def profile_predict(label, model, frames, forbid=None):
     """Device time by kernel over one ``predict`` of the 8-frame stack,
     printed under ``label``. Returns the summed device time, the ten
     largest entries and each port kernel's [ms, launches] summed over all
-    its instantiations."""
+    its instantiations. Fails if a kernel's name matches the regex
+    ``forbid`` (case ignored)."""
     busy, rows, port = device_profile(lambda: model.predict(frames))
+    bad = [key for _, _, key in rows
+           if forbid and re.search(forbid, key, re.I)]
+    if bad:
+        raise AssertionError(f'{label}: kernels matching {forbid!r} ran: '
+                             f'{[k[:110] for k in bad]}')
     print(f'{label}: profile of predict(8 frames): device busy '
           f'{busy:.2f} ms; by kernel (ms, calls, name):', flush=True)
     for ms, n, key in rows[:15]:
@@ -1212,8 +1339,9 @@ def drive_stream(model, frames, kw, counters, per_pose=None,
     calls. Fails if the pose model saw a batch outside ``batches`` (the
     batches phase 2 checked its kernels at; None: a pose model that runs
     no port kernel), or if a kernel ran other than once a detect (K1, for
-    a real detector; never without a detector) and ``per_pose`` times a
-    pose forward (default HRNet-W48's: the chain and the fuse 8 times
+    a real detector; never without a detector), once an activation of
+    each detect chunk's network (K4: YOLOv5's SiLUs) and ``per_pose`` times
+    a pose forward (default HRNet-W48's: the chain and the fuse 8 times
     each)."""
     from simple_hrnet_tpu_torch.detectors.yolov3 import PersonDetector
     from simple_hrnet_tpu_torch.utils.dispatch import strict_dispatch
@@ -1248,6 +1376,9 @@ def drive_stream(model, frames, kw, counters, per_pose=None,
         per_pose = {'basic_chain': 8, 'fuse_up': 8}
     want = {k: per_pose.get(k, 0) * len(seen) for k in counters}
     want['nms'] = len(detects) if real else 0
+    if real:
+        want['activation'] = activations_per_detect(det) * detect_chunks(
+            det, detects)
     if launches != want or (real and not detects):
         raise AssertionError(f'stream {kw}: launches {launches} over '
                              f'{len(detects)} detects and {len(seen)} pose '
@@ -1601,8 +1732,9 @@ def check_v5_f32(pth, pt, frame):
 
 def run_v5_predict(name, dtype, reps, pth, pt, frames, counters):
     """``predict`` on 1 and 8 frames in ``dtype``: K1 once a detect chunk
-    (one chunk: max_batch_size 32) and no other kernel, finite outputs;
-    timed, and the 8-frame call profiled."""
+    (one chunk: max_batch_size 32), K4 once a SiLU of each chunk's
+    network, and no other kernel, finite outputs; timed, and the 8-frame
+    call profiled, where no PyTorch SiLU kernel may run."""
     model = v5_facade(pth, pt, dtype=dtype)
     if model.detector.quantized or \
             model.detector.dtype != torch.bfloat16:
@@ -1613,6 +1745,7 @@ def run_v5_predict(name, dtype, reps, pth, pt, frames, counters):
         raise AssertionError(f'phase 6 [{name}]: {n_q} int8 convs')
     launches = {}
     outs = {}
+    silus = activations_per_detect(model.detector)
     for what, arg in (('single', frames[0]), ('stack8', frames)):
         for k in counters.values():
             k.launches = 0
@@ -1620,6 +1753,7 @@ def run_v5_predict(name, dtype, reps, pth, pt, frames, counters):
         torch.cuda.synchronize()
         launches[what] = {k: f.launches for k, f in counters.items()}
         want = {k: int(k == 'nms') for k in counters}
+        want['activation'] = silus
         if launches[what] != want:
             raise AssertionError(f'phase 6 [{name}] {what}: launches '
                                  f'{launches[what]}; want {want}')
@@ -1638,14 +1772,20 @@ def run_v5_predict(name, dtype, reps, pth, pt, frames, counters):
             model.predict(arg)
         t[what] = (time.perf_counter() - t0) / n * 1e3
     label = f'phase 6 [{name}]'
-    busy, top, port = profile_predict(label, model, frames)
+    # no PyTorch SiLU kernel: every SiLU is K4 (its launches are counted
+    # above by its wrapper; the profiler's own count can miss a record)
+    busy, top, port = profile_predict(label, model, frames, forbid='silu')
+    if 'K4 activation' not in port:
+        raise AssertionError(f'{label}: K4 is not in the profile: {port}')
     idle = 1.0 - busy / t['stack8']
     print(f'{label}: people {pts1.shape[0]} (1 frame) / {people8} (8 '
           f'frames); predict 1 frame {t["single"]:.1f} ms, 8 frames '
           f'{t["stack8"]:.1f} ms ({8e3 / t["stack8"]:.2f} frames/s), device '
           f'busy {busy:.2f} ms, idle share {100 * idle:.1f}%; K1 launches '
           f'per predict {launches["single"]["nms"]} (1 frame), '
-          f'{launches["stack8"]["nms"]} (8 frames)', flush=True)
+          f'{launches["stack8"]["nms"]} (8 frames); K4 (YOLOv5m\'s '
+          f'{silus} SiLUs) {launches["single"]["activation"]}, '
+          f'{launches["stack8"]["activation"]}', flush=True)
     del model
     torch.cuda.empty_cache()
     return launches, dict(
@@ -1654,13 +1794,14 @@ def run_v5_predict(name, dtype, reps, pth, pt, frames, counters):
         predict_ms_stack8=t['stack8'], stack8_device_busy_ms=busy,
         stack8_idle_share=idle, stack8_top_device_ms=top,
         stack8_port_kernels=port, launches_single=launches['single'],
-        launches_stack8=launches['stack8'])
+        launches_stack8=launches['stack8'], silus_per_detect=silus)
 
 
 def run_v5_stream(pth, pt, counters):
     """One chunked ``predict_stream`` in bf16 after ``warmup``, on phase 5's
-    frames: checked as phase 5 checks its runs (K1 once a detect, no other
-    kernel, every upload and runner call guarded), then timed over
+    frames: checked as phase 5 checks its runs (K1 once a detect, K4 once
+    a SiLU of each detect chunk, no other kernel, every upload and runner
+    call guarded), then timed over
     STREAM_TIME_FRAMES frames (median of STREAM_TIME_RUNS, min, max)."""
     model = v5_facade(pth, pt, dtype='bfloat16')
     model.return_heatmaps = model.return_bounding_boxes = False
@@ -3256,8 +3397,9 @@ def _golden_chain(cfg, dtype):
 
 def run_golden(G, config, dtype, n, paths, counters, golden):
     """One golden config on the card in ``dtype`` (kernels on): launches
-    counted around the config's call (K1 once a detect, the chain and K3 8
-    times a pose forward), then held against the JAX package's golden.
+    counted around the config's call (K1 once a detect, K4 once a YOLOv5
+    SiLU of each detect chunk, the chain and K3 8 times a pose forward),
+    then held against the JAX package's golden.
     Returns the comparison record and the outputs."""
     model = G.port_facade(config, paths, dtype, device='cuda')
     frames = G.config_frames(config)[:n]
@@ -3284,6 +3426,9 @@ def run_golden(G, config, dtype, n, paths, counters, golden):
     if chain is not None:
         want[chain] = want['fuse_up'] = 8 * len(seen)
     want['nms'] = len(detects)
+    if det is not None:
+        want['activation'] = activations_per_detect(det) * detect_chunks(
+            det, detects)
     if launches != want or not seen:
         raise AssertionError(f'phase 11 [{config} {dtype}]: launches '
                              f'{launches} over {len(detects)} detects and '
@@ -3501,13 +3646,36 @@ def card_line():
 
 def kernel_counters():
     """Each port kernel's wrapper, whose ``launches`` counts its launches."""
-    from simple_hrnet_tpu_torch.ops.cuda import (fuse_up, fused_block,
-                                                 int8_chain, nms,
-                                                 winograd_chain)
+    from simple_hrnet_tpu_torch.ops.cuda import (activation, fuse_up,
+                                                 fused_block, int8_chain,
+                                                 nms, winograd_chain)
     return {'nms': nms.nms, 'basic_chain': fused_block.basic_chain,
             'fuse_up': fuse_up.fuse_up,
             'wino_chain': winograd_chain.wino_chain,
-            'int8_chain': int8_chain.int8_chain}
+            'int8_chain': int8_chain.int8_chain,
+            'activation': activation.activation}
+
+
+def activations_per_detect(detector):
+    """K4 launches of one forward of ``detector``'s network: one a YOLOv5
+    ``Conv`` (its SiLU), one a darknet conv whose activation is logistic,
+    mish or swish/silu (YOLOv3's are leaky and linear: none); 0 for a
+    stub."""
+    from simple_hrnet_tpu_torch.detectors.darknet import DarknetConv
+    from simple_hrnet_tpu_torch.detectors.yolov5 import Conv
+    net = getattr(detector, 'net', None)
+    if net is None:
+        return 0
+    return sum(isinstance(m, Conv) or (
+        isinstance(m, DarknetConv) and
+        m.activation in ('logistic', 'mish', 'swish', 'silu'))
+        for m in net.modules())
+
+
+def detect_chunks(detector, frame_counts):
+    """Network forwards of ``detect_padded`` calls on ``frame_counts``
+    frames: one a chunk of ``max_batch_size`` frames."""
+    return sum(-(-n // detector.max_batch_size) for n in frame_counts)
 
 
 def main():
@@ -3578,6 +3746,7 @@ def main():
     check_wino(dev, rec)
     check_int8_chain(dev, rec)
     check_qconv(dev)
+    check_activation(dev, rec)
     summary = {}
     if not args.kernels_only:
         os.makedirs(build.BUILD_DIR, exist_ok=True)
@@ -3627,11 +3796,16 @@ def main():
                 'fuse_up': 'w48_bf16', 'wino_chain': 'w32_bf16',
                 'int8_chain': 'w32_int8'}
         for name, n in totals.items():
-            rec[name].update(
-                launches=n,
-                launches_single=by_path[name][home[name]]['single'],
-                launches_stack8=by_path[name][home[name]]['stack8'],
-                launches_by_path=by_path[name])
+            if name == 'activation':
+                # K4's own path: phase 6's YOLOv5m bf16 predict
+                single = by_path[name]['v5_bf16_single']
+                stack8 = by_path[name]['v5_bf16_stack8']
+            else:
+                single = by_path[name][home[name]]['single']
+                stack8 = by_path[name][home[name]]['stack8']
+            rec[name].update(launches=n, launches_single=single,
+                             launches_stack8=stack8,
+                             launches_by_path=by_path[name])
     print(json.dumps({'kernels': list(rec.values()), 'main_path': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.models.layers import add_bias, init_conv_
+from simple_hrnet_tpu_torch.ops.cuda import activation as A
 from simple_hrnet_tpu_torch.utils.device import host_to_device
 
 Block = Dict[str, Any]
@@ -250,7 +251,14 @@ class DarknetConv(nn.Module):
     """One convolutional block: conv (bias only without BN) -> BN ->
     activation. After int8 quantization (``quantize.quantize_folded`` with
     ``types=(DarknetConv,)``) its folded conv runs as ``self.qconv``, a
-    ``layers.QConv2d``."""
+    ``layers.QConv2d``.
+
+    Each activation rounds where the JAX package's does in the compute
+    type: leaky's slope is rounded before its one product
+    (``_leaky_slope``) and relu is exact; logistic, mish and swish/silu
+    are written op by op and rounded after each op, as XLA rounds
+    ``jax.nn.sigmoid``, ``y * tanh(softplus(y))`` and ``y * sigmoid(y)``
+    (``ops/activation.py``; kernel K4 on the card)."""
 
     def __init__(self, c_in: int, blk: Block):
         super().__init__()
@@ -279,11 +287,11 @@ class DarknetConv(nn.Module):
         elif act == 'relu':
             y = F.relu(y)
         elif act == 'logistic':
-            y = torch.sigmoid(y)
+            y = A.sigmoid(y)
         elif act == 'mish':
-            y = y * torch.tanh(F.softplus(y))
+            y = A.mish(y)
         elif act in ('swish', 'silu'):
-            y = y * torch.sigmoid(y)
+            y = A.silu(y)
         return y
 
     def fold(self) -> None:

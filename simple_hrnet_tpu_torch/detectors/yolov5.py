@@ -36,6 +36,7 @@ from simple_hrnet_tpu_torch.detectors.yolov3 import (
 from simple_hrnet_tpu_torch.models import layers as L
 from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
+from simple_hrnet_tpu_torch.ops.cuda import activation as A
 from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
 from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
 
@@ -79,7 +80,11 @@ def build_config(variant: str = 'yolov5m', num_classes: int = 80) -> dict:
 class Conv(nn.Module):
     """ultralytics Conv: conv -> BN -> SiLU. After folding, ``bn`` is an
     ``nn.Identity``; after int8 quantization ``conv`` is a
-    ``layers.QConv2d`` and SiLU stays outside it, in the compute type."""
+    ``layers.QConv2d`` and SiLU stays outside it, in the compute type.
+    The SiLU is ``x * (1 / (exp(-x) + 1))`` rounded to the compute type
+    after each op, as the JAX package's ``jax.nn.silu`` rounds in bf16
+    (``ops/activation.py``); on the card it is kernel K4
+    (``ops/cuda/activation.py``), one launch a Conv."""
 
     def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
                  pad: Optional[int] = None):
@@ -90,7 +95,7 @@ class Conv(nn.Module):
         self.bn = L.bn(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.bn(self.conv(x)))
+        return A.silu(self.bn(self.conv(x)))
 
 
 class Bottleneck(nn.Module):

@@ -31,10 +31,12 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
 
-KERNELS = ('nms', 'fused_block', 'fuse_up', 'winograd_chain', 'int8_chain')
+KERNELS = ('nms', 'fused_block', 'fuse_up', 'winograd_chain', 'int8_chain',
+           'activation')
 
 # no --use_fast_math: the NMS kernel must reproduce the plain version's
-# IEEE division slot for slot
+# IEEE division slot for slot, and the activation kernel its IEEE expf,
+# log1pf, tanhf and division bit for bit
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
               '-lineinfo')

@@ -5,8 +5,10 @@ layers.py`` ``conv2d``, in its order:
   1. quantize the input: ``x * (1 / ascale)`` (a multiply by the f32
      reciprocal), round half to even, clip to [-127, 127];
   2. an int8 conv with exact int32 accumulation;
-  3. ``acc * (ascale * wscale) + bias`` in f32, then a cast to the type of
-     the input (the compute type).
+  3. ``acc * (ascale * wscale) + bias`` in f32 with one rounding (a fused
+     multiply-add: XLA's CPU lowering contracts the HLO's multiply and add
+     into one FMA, ``torch.addcmul`` computes the same on the CPU and the
+     card), then a cast to the type of the input (the compute type).
 
 The JAX package runs this conv in XLA, outside any Pallas kernel, so it is a
 library call here too: on CUDA ``torch._int_mm`` (the int8 tensor cores)
@@ -93,5 +95,5 @@ def int8_conv2d(x: torch.Tensor, wq: torch.Tensor, k: int,
     () f32, ``bias`` (Co,) f32."""
     xq = quantize(x.permute(0, 2, 3, 1), 1.0 / ascale)
     acc = int8_conv_acc(xq, wq, k, stride, padding)
-    out = acc.float() * (ascale * wscale) + bias
+    out = torch.addcmul(bias, acc.float(), ascale * wscale)
     return out.to(x.dtype).permute(0, 3, 1, 2)

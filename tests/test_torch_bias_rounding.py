@@ -1,4 +1,5 @@
-"""The port's biased bf16 convs round as the JAX package's do, on the CPU.
+"""The port's biased bf16 convs and the detectors' activations round as the
+JAX package's do, on the CPU.
 
 The JAX package's ``layers.conv2d`` and ``deconv2d`` round the conv's
 output to bf16 and then add the bf16 bias (two roundings); a bf16
@@ -11,8 +12,13 @@ conv are each held against the JAX function on the same numpy inputs,
 with drawn BatchNorm
 statistics so that every folded bias is non-zero: within one bf16 step
 everywhere, and unequal in under 0.1% of the elements (the f32 sums'
-order differs). Also: ``distributed.initialize`` takes the card by
-default and raises without one.
+order differs). The darknet conv also runs through logistic, mish and
+swish, and the YOLOv5 conv through its SiLU: XLA rounds each op of those
+chains to bf16, and so does the port (``ops/activation.py``; kernel K4 on
+the card). On their own, over 2^20 elements, the port's bf16 sigmoid,
+SiLU and mish equal ``jax.nn``'s bit for bit, where ``F.silu`` (one
+rounding) differs in a third of them. Also: ``distributed.initialize``
+takes the card by default and raises without one.
 """
 
 import numpy as np
@@ -22,18 +28,31 @@ import jax
 import jax.numpy as jnp
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch_port_threads import torch_two_threads  # noqa: F401 (autouse)
 
+from simple_hrnet_tpu.detectors import yolov5 as J5
 from simple_hrnet_tpu.models import layers as JL
 
 from simple_hrnet_tpu_torch.detectors import darknet as TD
 from simple_hrnet_tpu_torch.detectors import yolov5 as T5
 from simple_hrnet_tpu_torch.models import layers as L
+from simple_hrnet_tpu_torch.ops.cuda import activation as A
 from simple_hrnet_tpu_torch.parallel import distributed as D
 
 # the share of elements that may differ by one bf16 step: the f32 sums'
 # order differs between oneDNN and XLA, so a few roundings land apart
 MAX_DIFFERING = 1e-3
+
+# the JAX package's darknet activations (simple_hrnet_tpu/detectors/
+# darknet.py, ``apply``'s convolutional branch)
+JAX_DARKNET_ACT = {
+    'linear': lambda y: y,
+    'leaky': lambda y: jax.nn.leaky_relu(y, 0.1),
+    'logistic': jax.nn.sigmoid,
+    'mish': lambda y: y * jnp.tanh(jax.nn.softplus(y)),
+    'swish': lambda y: y * jax.nn.sigmoid(y),
+}
 
 
 def draw_bn(bn: nn.BatchNorm2d, rng) -> None:
@@ -145,11 +164,12 @@ def test_poseresnet_deconv():
     assert_rounds_as_jax(port_bf16(m, x), want)
 
 
-@pytest.mark.parametrize('activation', ['linear', 'leaky'])
+@pytest.mark.parametrize('activation', list(JAX_DARKNET_ACT))
 def test_darknet_conv(activation):
     """A darknet convolutional block (BN folded, as ``darknet.fold_weights``
-    casts it), linear or leaky: ``jax.nn.leaky_relu`` casts its slope 0.1
-    to bf16 before the product, which the port's slope follows."""
+    casts it) through each activation but relu (exact): ``jax.nn.leaky_relu``
+    casts its slope 0.1 to bf16 before the product, which the port's slope
+    follows; logistic, mish and swish round after each op."""
     rng = np.random.default_rng(6)
     blk = {'type': 'convolutional', 'bn': True, 'filters': 32, 'size': 3,
            'stride': 1, 'pad': 1, 'activation': activation}
@@ -159,14 +179,14 @@ def test_darknet_conv(activation):
     m.eval().fold()
     p = jax_params(m.weight, m.bias)
     x = frame((2, 16, 16, 32), 7)
-    want = JL.conv2d(jnp.asarray(x), p, padding=1, dtype=jnp.bfloat16)
-    if activation == 'leaky':
-        want = jax.nn.leaky_relu(want, 0.1)
+    want = JAX_DARKNET_ACT[activation](
+        JL.conv2d(jnp.asarray(x), p, padding=1, dtype=jnp.bfloat16))
     assert_rounds_as_jax(port_bf16(m, x), want)
 
 
 def test_yolov5_conv():
-    """A YOLOv5 ``Conv``'s folded 3x3 conv (before its SiLU)."""
+    """A YOLOv5 ``Conv``'s folded 3x3 conv, then the whole ``Conv`` through
+    its SiLU against the JAX package's ``_conv``."""
     rng = np.random.default_rng(8)
     blk = T5.Conv(32, 32, 3)
     draw_conv(blk.conv, rng)
@@ -176,6 +196,33 @@ def test_yolov5_conv():
     x = frame((2, 16, 16, 32), 9)
     want = JL.conv2d(jnp.asarray(x), p, padding=1, dtype=jnp.bfloat16)
     assert_rounds_as_jax(port_bf16(blk.conv, x), want)
+    want = J5._conv({'conv': p}, jnp.asarray(x), dtype=jnp.bfloat16)
+    assert_rounds_as_jax(port_bf16(blk, x), want)
+
+
+def test_activations_equal_jax_bit_for_bit():
+    """The port's bf16 sigmoid, SiLU and mish on 2^20 seeded elements
+    (normal, sd 3) against ``jax.nn.sigmoid``, ``jax.nn.silu`` and the JAX
+    package's mish: no element differs. PyTorch's own calls, which round
+    once, differ in over 10% (the control)."""
+    x = np.random.default_rng(10).normal(0.0, 3.0, 1 << 20).astype(
+        np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    cases = (
+        ('sigmoid', A.sigmoid, jax.nn.sigmoid, torch.sigmoid),
+        ('silu', A.silu, jax.nn.silu, F.silu),
+        ('mish', A.mish, JAX_DARKNET_ACT['mish'],
+         lambda t: t * torch.tanh(F.softplus(t))),
+    )
+    for name, port, jax_fn, once in cases:
+        want = np.asarray(jax.jit(jax_fn)(xj).astype(jnp.float32))
+        got = port(xt).float().numpy()
+        control = float(np.mean(once(xt).float().numpy() != want))
+        print(f'{name}: {int(np.sum(got != want))} elements differ; '
+              f'rounded once, {control:.3f} of them')
+        np.testing.assert_array_equal(got, want)
+        assert control > 0.1
 
 
 def test_initialize_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

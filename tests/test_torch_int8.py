@@ -9,8 +9,10 @@ Tolerances, with their reasons:
     cores are exact; only the f32 epilogue's rounding may differ by an
     ulp); against the XLA ``blockdiag_chain_int8_grouped`` in f32 (where
     its cast points coincide with the kernel's): the same;
-  * ``QConv2d`` against the JAX ``layers.conv2d`` int8 branch: 1e-6 of max
-    (exact int32 cores, the same f32 epilogue);
+  * ``QConv2d`` against the jitted JAX ``layers.conv2d`` int8 branch:
+    bitwise (exact int32 cores, the same f32 epilogue: one fused
+    multiply-add, as XLA's CPU lowering contracts the dequantize and the
+    bias);
   * calibration amax: 1e-5 relative (the two packages' f32 convs sum in
     different orders).
 The CUDA kernel is held against the plain version on a card by
@@ -20,6 +22,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -100,8 +103,9 @@ def test_int8_chain_rejects_mismatched_operands(chain_q):
 
 @pytest.mark.parametrize('stride', [1, 2])
 def test_qconv_matches_jax_int8_conv(stride):
-    """The quantized conv (quantize, exact int32 core, f32 dequant + bias,
-    cast) against layers.conv2d's kernel_q branch, in f32 and bf16."""
+    """The quantized conv (quantize, exact int32 core, f32 dequant + bias
+    in one FMA, cast) against layers.conv2d's kernel_q branch, in f32 and
+    bf16, bit for bit."""
     rng = np.random.default_rng(60 + stride)
     x = rng.standard_normal((2, 15, 13, 32)).astype(np.float32)
     k = (rng.standard_normal((3, 3, 32, 48)) * 0.1).astype(np.float32)
@@ -125,16 +129,17 @@ def test_qconv_matches_jax_int8_conv(stride):
         qnode['wscale']))
     assert q.ascale.item() == float(qnode['ascale'])
     for jdt, tdt in ((None, torch.float32), (jnp.bfloat16, torch.bfloat16)):
-        ref = np.asarray(JL.conv2d(jnp.asarray(x, jdt or jnp.float32), qnode,
-                                   stride=stride, padding=1, dtype=jdt
-                                   ).astype(jnp.float32))
+        # jitted, as the JAX facade runs it: XLA fuses the dequantize and
+        # the bias add, and its CPU lowering contracts them into one FMA
+        ref = np.asarray(jax.jit(lambda v, jdt=jdt: JL.conv2d(
+            v, qnode, stride=stride, padding=1, dtype=jdt))(
+                jnp.asarray(x, jdt or jnp.float32)).astype(jnp.float32))
         xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
         with torch.no_grad():
             out = q(xt)
         assert out.dtype == tdt
         out = out.permute(0, 2, 3, 1).float().numpy()
-        assert out.shape == ref.shape
-        assert np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
+        np.testing.assert_array_equal(out, ref)
 
 
 def _jax_tree(model: torch.nn.Module) -> dict:

@@ -234,10 +234,12 @@ def test_quantize_int8_matches_jax(pt):
         v *= carried[path]
         with torch.no_grad():
             out = m(torch.from_numpy(v).permute(0, 3, 1, 2))
+        # jitted, as the JAX detector runs it: XLA contracts the
+        # dequantize and the bias add into one FMA, as the port's epilogue
         np.testing.assert_array_equal(
             out.permute(0, 2, 3, 1).numpy(),
-            np.asarray(JL.conv2d(v, node, stride=m.stride,
-                                 padding=m.padding)))
+            np.asarray(jax.jit(lambda a, n=node, s=m.stride, d=m.padding:
+                               JL.conv2d(a, n, stride=s, padding=d))(v)))
     x = rng.uniform(0, 1, (1, SIZE, SIZE, 3)).astype(np.float32)
     with torch.no_grad():
         out = net(torch.from_numpy(x), SIZE).numpy()
