@@ -37,7 +37,8 @@ Phases (any failure exits nonzero):
      random ``.pth`` and a seeded random darknet ``.weights`` file:
      W48-384x288 bf16 (basic chain + fuse), W32-256x192 bf16 (Winograd
      chain + fuse) and W32-256x192 int8 (int8 chain + fuse, HRNet and
-     YOLOv3 quantized). Each runs ``predict`` on one synthetic 480x640
+     YOLOv3 quantized); YOLOv3 with its default space-to-depth phase
+     stem, as every detector below unless said. Each runs ``predict`` on one synthetic 480x640
      frame and on a stack of 8, with every kernel's launch count set to 0
      just before and read just after, and checks that detections reached
      the pose path, that its kernels ran there (8 chain launches per pose
@@ -78,7 +79,14 @@ Phases (any failure exits nonzero):
      and no PyTorch SiLU kernel in the profile; in bf16 after ``warmup``
      one chunked
      ``predict_stream`` (4 frames a launch) runs as phase 5 runs its modes,
-     dispatch guarded, and is timed over 64 frames;
+     dispatch guarded, and is timed over 64 frames. Then the two stem
+     forms: YOLOv3-416 (the goldens' seeded weights) and YOLOv5m-640
+     built with ``phase_stem=True`` and ``False`` detect on the 8-frame
+     stack in f32, each form's rows held against the other's (matched by
+     box, boxes within 1e-2 px, scores 1e-4), and each form's letterbox +
+     stem convs (``conv_0``/``conv_1``, ``model.0``) in bf16 is timed in
+     one profile (device ms a call) and by CUDA events, beside the card's
+     name and power limit, its kernels listed;
   7. the single-person path: ``SimpleHRNet(c, 17, <.pth>, resolution,
      multiperson=False, interpolation=...)`` on the same 480x640 frames, no
      detector. In f32, entered with both TF32 flags on (cuDNN's is on by
@@ -194,7 +202,8 @@ Phases (any failure exits nonzero):
      facade's whole-pixel boxes within that and at least one pixel); four
      controls (other frames' golden, a zeroed chain in f32, bf16 and int8,
      the PoseResNet-50 bf16 facade against its int8 golden, and YOLOv3 +
-     W32 int8 with ``conv_1`` quantized as before ROADMAP C11's repair)
+     W32 int8 with its YOLOv3 built with ``phase_stem=False``, whose
+     policy quantizes ``conv_1`` too)
      must fail, their readings printed beside their bounds; all six
      kernels must have run (K4 on the YOLOv5m stream, once a SiLU of each
      detect chunk).
@@ -216,7 +225,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import copy
 import json
 import os
 import re
@@ -1838,9 +1847,158 @@ def run_v5_stream(pth, pt, counters):
                         guarded_calls=record['guarded_calls'])
 
 
+# the detectors' two stem forms (``phase_stem``), exact rewrites of each
+# other: in f32 their rows are held against each other, people matched by
+# box, boxes within V5_BOX_TOL px (phase 6's card-against-CPU limit: the
+# forms differ by summation order only) and scores within STEM_SCORE_TOL
+# (the CPU reads 2.5e-5 between YOLOv3's forms on these frames with the
+# goldens' weights; four times that); each form's letterbox and stem convs
+# are timed in bf16, STEM_REPS calls a form, in one profile
+STEM_SCORE_TOL = 1e-4
+STEM_REPS = 5
+
+
+def _match_rows(label, a, b):
+    """Per frame, the valid rows of ``a`` and ``b`` (x1, y1, x2, y2, score,
+    ...) matched by box, each row of ``a`` with its nearest in ``b``.
+    Returns the largest box and score differences; fails on other
+    counts, on no rows or on a row matched twice."""
+    box_err = score_err = 0.0
+    n = 0
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        if len(ra) != len(rb):
+            raise AssertionError(f'{label}: frame {i} keeps {len(ra)} rows '
+                                 f'against {len(rb)}')
+        if not len(ra):
+            continue
+        d = np.abs(ra[:, None, :4] - rb[None, :, :4]).max(-1)
+        j = d.argmin(1)
+        if len(set(j.tolist())) != len(j):
+            raise AssertionError(f'{label}: frame {i}: rows matched twice')
+        box_err = max(box_err, float(d[np.arange(len(j)), j].max()))
+        score_err = max(score_err, float(np.abs(ra[:, 4] - rb[j, 4]).max()))
+        n += len(ra)
+    if n == 0:
+        raise AssertionError(f'{label}: no rows to compare')
+    return box_err, score_err, n
+
+
+def _stem_bf16(det):
+    """``det``'s letterbox and stem convs as its ``_detect`` runs them, on
+    bf16 copies of the convs (``fold_weights``' and ``YOLOv5``'s casts):
+    YOLOv3's ``conv_0`` and ``conv_1``, YOLOv5's ``model.0``."""
+    from simple_hrnet_tpu_torch.detectors.darknet import Darknet
+    if isinstance(det.net, Darknet):
+        mods = [copy.deepcopy(det.net.conv_0), copy.deepcopy(det.net.conv_1)]
+        for m in mods:
+            m.weight.data = m.weight.data.to(torch.bfloat16)
+            m.bias.data = m.bias.data.to(torch.bfloat16)
+    else:
+        mods = [copy.deepcopy(det.net.model['0']).to(torch.bfloat16)]
+
+    def stem(frames):
+        x = det._letterbox(frames).permute(0, 3, 1, 2).to(torch.bfloat16)
+        for m in mods:
+            x = m(x)
+        return x
+    return stem
+
+
+@torch.no_grad()
+def check_stem_forms(tmp, pt, frames):
+    """YOLOv3-416 (the goldens' seeded weights: phase 4's own, whose
+    activations shrink through the network, give outputs the input barely
+    moves) and YOLOv5m-640 (phase 6's ``.pt``) built with
+    ``phase_stem=True`` and ``False``: in f32 the 8-frame detects held
+    against each other, then each form's letterbox + stem convs in bf16
+    timed in one profile (device ms a call from the profile's ranges, and
+    CUDA-event ms a call beside them) and its kernels listed."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
+    from simple_hrnet_tpu_torch.detectors.yolov5 import YOLOv5
+
+    t0 = time.perf_counter()
+    weights = _goldens_module().write_weights(tmp, ['yolov3'])['yolov3'][0]
+    rgb = np.ascontiguousarray(frames[..., ::-1])
+    x = torch.from_numpy(rgb).cuda()
+    makers = {'yolov3_416': lambda stem: YOLOv3(
+                  'yolov3', weights_path=weights, device='cuda',
+                  phase_stem=stem),
+              'yolov5m_640': lambda stem: YOLOv5(pt, device='cuda',
+                                                 phase_stem=stem)}
+    rec, stems = {}, {}
+    for name, make in makers.items():
+        rows = {}
+        for form, flag in (('phase', True), ('plain', False)):
+            det = make(flag)
+            if det.phase_stem != flag:
+                raise AssertionError(f'stem forms [{name}]: phase_stem '
+                                     f'{det.phase_stem}, asked {flag}')
+            r, v = (t.cpu().numpy() for t in det.detect_padded(rgb))
+            rows[form] = [r[i][v[i]] for i in range(len(r))]
+            stems[f'{name} {form}'] = _stem_bf16(det)
+            del det
+        box_err, score_err, n = _match_rows(f'stem forms [{name}]',
+                                            rows['phase'], rows['plain'])
+        if box_err > V5_BOX_TOL or score_err > STEM_SCORE_TOL:
+            raise AssertionError(f'stem forms [{name}] f32: phase against '
+                                 f'plain rows: boxes {box_err} px, scores '
+                                 f'{score_err}')
+        rec[name] = dict(rows=n, box_err_px=box_err, score_err=score_err)
+        print(f'stem forms [{name}] f32: phase and plain stems keep the same '
+              f'{n} rows over 8 frames (boxes {box_err:.2e} px, scores '
+              f'{score_err:.2e})', flush=True)
+    torch.cuda.empty_cache()
+    for fn in stems.values():  # warm up (cuDNN's algorithm choice)
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in stems.items():
+            with record_function(label):
+                for _ in range(STEM_REPS):
+                    fn(x)
+            torch.cuda.synchronize()
+    ranges = {}
+    for ev in prof.events():
+        if ev.name in stems and \
+                ev.device_type == torch.autograd.DeviceType.CPU:
+            ranges[ev.name] = (ranges.get(ev.name, 0.0)
+                               + ev.device_time_total / 1e3 / STEM_REPS)
+    events = {}
+    for label, fn in stems.items():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(STEM_REPS):
+            fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        events[label] = start.elapsed_time(end) / STEM_REPS
+    card = card_line()
+    kernels = {}
+    for label, fn in stems.items():
+        print(f'stem forms bf16 [{label}]: letterbox + stem convs on 8 '
+              f'frames: device {ranges.get(label, 0.0):.4f} ms a call (one '
+              f'profile), {events[label]:.4f} ms a call (CUDA events); '
+              f'{card}; its kernels (ms, calls, name), one call:',
+              flush=True)
+        _, rows, _ = device_profile(lambda: fn(x))
+        kernels[label] = [[round(ms, 4), n, key[:80]] for ms, n, key in rows]
+        for ms, n, key in rows[:8]:
+            print(f'    {ms:9.4f} {n:4d}  {key[:100]}')
+    if not all(ranges.get(label, 0.0) > 0 for label in stems):
+        raise AssertionError(f'stem forms: the profile gave no device time '
+                             f'to a range: {ranges}')
+    rec.update(card=card, device_ms=ranges, event_ms=events,
+               kernels=kernels, seconds=time.perf_counter() - t0)
+    print(f'stem forms: {rec["seconds"]:.1f} s', flush=True)
+    return rec
+
+
 def run_v5_phase(tmp, counters):
     """Phase 6: the PoseResNet-50 + YOLOv5m path (see the module
-    docstring). Returns each run's launches and the phase's record."""
+    docstring), then the check of both detectors' stem forms. Returns
+    each run's launches and the phase's record."""
     t0 = time.perf_counter()
     pth, pt = write_v5_weights(tmp)
     frames = smooth_frames(8)
@@ -1852,6 +2010,7 @@ def run_v5_phase(tmp, counters):
         launches.update({f'v5_{name}_{k}': v for k, v in runs.items()})
     record, summary['stream_bf16'] = run_v5_stream(pth, pt, counters)
     launches['v5_stream_bf16'] = record['launches']
+    summary['stem_forms'] = check_stem_forms(tmp, pt, frames)
     summary['seconds'] = time.perf_counter() - t0
     print(f'phase 6: {summary["seconds"]:.1f} s', flush=True)
     return launches, summary
@@ -3452,9 +3611,10 @@ def golden_controls(G, paths, w48_outs):
     golden's frames 2-3; W32's plain path (``use_fused_kernels=False``)
     with stage 3's first branch-0 chain output zeroed, in f32, bf16 and
     int8; the PoseResNet-50 bf16 facade against the int8 golden (no conv
-    quantized); and the YOLOv3 + W32 int8 facade with YOLOv3's ``conv_1``
-    quantized too (``torch_goldens.plain_stem_int8``, the set before
-    ROADMAP C11's repair). The last two print every reading beside its
+    quantized); and the YOLOv3 + W32 int8 facade with its YOLOv3 built
+    with ``phase_stem=False``, whose policy quantizes ``conv_1`` too
+    (``torch_goldens.plain_stem_int8``; the JAX package's default phase
+    stem keeps it in bf16). The last two print every reading beside its
     bound: they show what the int8 gates can and cannot see."""
     rec = {}
     r = G.compare(w48_outs[:2], G.load_golden('w48_384x288_batch16'), 'f32',
@@ -3478,13 +3638,12 @@ def golden_controls(G, paths, w48_outs):
             raise AssertionError(f'phase 11 control: a zeroed chain passed '
                                  f'{dtype}: {G.report(r)}')
         rec[f'zeroed_chain_{dtype}_heatmap_rel_max'] = r['heatmap_rel_max']
-    for label, config, dtype, stem in (
-            ('res50_bf16_as_int8', 'res50_256x192_batch4', 'bfloat16',
-             contextlib.nullcontext()),
-            ('yolov3_conv_1_quantized', 'multiperson_yolov3_w32', 'int8',
-             G.plain_stem_int8())):
-        with stem:
-            model = G.port_facade(config, paths, dtype, device='cuda')
+    for label, config, dtype in (
+            ('res50_bf16_as_int8', 'res50_256x192_batch4', 'bfloat16'),
+            ('yolov3_conv_1_quantized', 'multiperson_yolov3_w32', 'int8')):
+        model = G.port_facade(config, paths, dtype, device='cuda')
+        if label == 'yolov3_conv_1_quantized':
+            G.plain_stem_int8(model, config, paths)
         frames = G.config_frames(config)
         outs = G.run_facade(model, config, frames)
         rows = (G.detector_rows(model.detector, frames)

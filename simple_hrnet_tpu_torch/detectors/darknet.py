@@ -11,11 +11,14 @@ the concatenation), and a strided maxpool padded by ``(size - 1) // 2``. A
 convolutional block ``i`` is the module ``conv_<i>`` with ``weight``
 (OIHW), ``bias`` (no BN) or a ``bn`` BatchNorm2d child — the JAX param
 tree's names, so ``models.convert.from_jax_params`` carries weights across.
-The space-to-depth phase stem (a TPU layout device) is not ported.
 
 ``Darknet.forward`` is the counterpart of ``darknet.apply``: NHWC input
 in [0, 1], output (N, total_anchors, 5 + classes) f32 decoded boxes in the
-darknet flatten order (anchor, gy, gx).
+darknet flatten order (anchor, gy, gx). With the space-to-depth phase stem
+(``ops/phase.py``; ``stem_phaseable``, ``phase_stem_params``), on by
+default in ``YOLOv3`` as in the JAX package, the input is the (N, S/2,
+S/2, 12) phase tensor and the stem convs hold their exact phase-space
+rewrites.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.models.layers import add_bias, init_conv_
+from simple_hrnet_tpu_torch.ops import phase as P
 from simple_hrnet_tpu_torch.ops.cuda import activation as A
 from simple_hrnet_tpu_torch.utils.device import host_to_device
 
@@ -209,36 +213,6 @@ def output_channels(blocks: List[Block], in_channels: int = 3) -> List[int]:
     return chans
 
 
-def phase_stem_convs(blocks: List[Block]) -> List[str]:
-    """The convs that the JAX package's phase stem (``darknet.
-    stem_phaseable`` and ``phase_stem_params`` there, on by default at an
-    even ``img_size``) rewrites out of the int8 policy, which would
-    otherwise take them: ``conv_1`` where a stride-2 3x3 conv follows the
-    first conv (YOLOv3; its rewritten form (2, 2, 4co, c1) has kh < 3).
-    None where a 2x2 stride-2 maxpool follows it (YOLOv3-tiny) or the stem
-    does not qualify (a stride-1 3x3 conv first, then that downsample, and
-    no later block routing back to block 0). ``conv_0`` (three input
-    channels) is outside the policy either way."""
-    if len(blocks) < 2:
-        return []
-    b0, b1 = blocks[0], blocks[1]
-    if not (b0['type'] == 'convolutional' and b0['size'] == 3
-            and b0['stride'] == 1 and b0['pad'] == 1):
-        return []
-    down_conv = (b1['type'] == 'convolutional' and b1['size'] == 3
-                 and b1['stride'] == 2 and b1['pad'] == 1)
-    down_pool = (b1['type'] == 'maxpool' and b1['size'] == 2
-                 and b1['stride'] == 2)
-    if not (down_conv or down_pool):
-        return []
-    for i, blk in enumerate(blocks):
-        back = ([blk['from']] if blk['type'] == 'shortcut' else
-                blk['layers'] if blk['type'] == 'route' else [])
-        if any((l if l >= 0 else i + l) == 0 for l in back):
-            return []
-    return ['conv_1'] if down_conv else []
-
-
 @functools.lru_cache(maxsize=None)
 def _leaky_slope(dtype: torch.dtype) -> float:
     """darknet's leaky slope 0.1 in ``dtype``, as ``jax.nn.leaky_relu``
@@ -258,7 +232,11 @@ class DarknetConv(nn.Module):
     (``_leaky_slope``) and relu is exact; logistic, mish and swish/silu
     are written op by op and rounded after each op, as XLA rounds
     ``jax.nn.sigmoid``, ``y * tanh(softplus(y))`` and ``y * sigmoid(y)``
-    (``ops/activation.py``; kernel K4 on the card)."""
+    (``ops/activation.py``; kernel K4 on the card).
+
+    ``padding`` is an int, or ((top, bottom), (left, right)) where the
+    phase stem's rewrite of a stride-2 conv pads asymmetrically: then the
+    input is zero-padded by ``F.pad`` and the conv runs unpadded."""
 
     def __init__(self, c_in: int, blk: Block):
         super().__init__()
@@ -274,11 +252,16 @@ class DarknetConv(nn.Module):
         self.qconv: Optional[nn.Module] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.padding
+        if not isinstance(pad, int):
+            (top, bottom), (left, right) = pad
+            x = F.pad(x, (left, right, top, bottom))
+            pad = 0
         if self.qconv is not None:
             y = self.qconv(x)
         else:
             y = add_bias(F.conv2d(x, self.weight, None, stride=self.stride,
-                                  padding=self.padding), self.bias)
+                                  padding=pad), self.bias)
         if self.bn is not None:
             y = self.bn(y)
         act = self.activation
@@ -352,8 +335,15 @@ class Darknet(nn.Module):
             prev = chans[i]
         self.compute_dtype = torch.float32
 
-    def forward(self, x: torch.Tensor, img_size: int) -> torch.Tensor:
-        """(N, S, S, 3) in [0, 1] NHWC -> (N, anchors, 5 + classes) f32."""
+    def forward(self, x: torch.Tensor, img_size: int,
+                phase_stem: bool = False) -> torch.Tensor:
+        """(N, S, S, 3) in [0, 1] NHWC -> (N, anchors, 5 + classes) f32.
+        With ``phase_stem`` (after ``phase_stem_params``), x is the (N,
+        S/2, S/2, 12) phase tensor: ``conv_0`` runs phase to phase (its
+        activation is elementwise, so unchanged), and the stem leaves phase
+        space through the rewritten ``conv_1`` or, where block 1 is the
+        2x2 stride-2 maxpool, through the elementwise max of the four
+        phase channel blocks, which are each position's 2x2 window."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         outputs: List[torch.Tensor] = []
         detections: List[torch.Tensor] = []
@@ -378,7 +368,12 @@ class Darknet(nn.Module):
                                   mode='nearest')
             elif t == 'maxpool':
                 k = blk['size']
-                if blk['stride'] == 1:
+                if phase_stem and i == 1:
+                    c4 = x.shape[1] // 4
+                    q = [x[:, j * c4:(j + 1) * c4] for j in range(4)]
+                    x = torch.maximum(torch.maximum(q[0], q[1]),
+                                      torch.maximum(q[2], q[3]))
+                elif blk['stride'] == 1:
                     # darknet 'same' maxpool (tiny): pad right/bottom
                     x = F.pad(x, (0, k - 1, 0, k - 1), value=float('-inf'))
                     x = F.max_pool2d(x, k, 1)
@@ -398,6 +393,76 @@ class Darknet(nn.Module):
             if isinstance(m, DarknetConv):
                 m.fold()
         return self
+
+
+def stem_phaseable(blocks: List[Block]) -> bool:
+    """True when the first two blocks are a phaseable stem (the JAX
+    package's ``darknet.stem_phaseable``): a stride-1 3x3 pad-1 conv
+    followed by either a stride-2 3x3 pad-1 conv (YOLOv3) or a 2x2
+    stride-2 maxpool (YOLOv3-tiny), and no later block routing back to
+    block 0, whose output is in phase layout under the phase stem."""
+    if len(blocks) < 2:
+        return False
+    b0, b1 = blocks[0], blocks[1]
+    if not (b0['type'] == 'convolutional' and b0['size'] == 3
+            and b0['stride'] == 1 and b0['pad'] == 1):
+        return False
+    down_conv = (b1['type'] == 'convolutional' and b1['size'] == 3
+                 and b1['stride'] == 2 and b1['pad'] == 1)
+    down_pool = (b1['type'] == 'maxpool' and b1['size'] == 2
+                 and b1['stride'] == 2)
+    if not (down_conv or down_pool):
+        return False
+    for i, blk in enumerate(blocks):
+        back = ([blk['from']] if blk['type'] == 'shortcut' else
+                blk['layers'] if blk['type'] == 'route' else [])
+        if any((l if l >= 0 else i + l) == 0 for l in back):
+            return False
+    return True
+
+
+def _set_conv(m: DarknetConv, kernel: np.ndarray, bias: torch.Tensor,
+              padding) -> None:
+    """Give ``m`` the HWIO ``kernel`` and ``bias``, stride 1 and
+    ``padding`` (an int where the pairs are all one value)."""
+    (top, bottom), (left, right) = padding
+    m.weight = nn.Parameter(P.oihw(kernel).to(m.weight.device),
+                            requires_grad=False)
+    m.bias = nn.Parameter(bias, requires_grad=False)
+    m.stride = 1
+    m.padding = top if top == bottom == left == right else padding
+
+
+@torch.no_grad()
+def phase_stem_params(net: Darknet) -> Darknet:
+    """Rewrite, in place, the FOLDED stem convs of ``net`` into their
+    exact phase-space forms (the JAX package's ``phase_stem_params``):
+    ``conv_0`` (co, ci, 3, 3) -> (4co, 4ci, 3, 3) with a 4-tiled bias, its
+    output in phase space; for the conv+conv stem ``conv_1`` (c1, co, 3,
+    3, stride 2) -> (c1, 4co, 2, 2) at stride 1 with the pad ((1, 0), (1,
+    0)), its output in the standard layout (the conv+maxpool stem leaves
+    phase space in ``forward``). Run it before int8 calibration, so that
+    the policy sees the shipped kernels: both rewritten convs fall outside
+    it (12 input channels; a 2x2 kernel). Returns ``net``."""
+    blocks = net.blocks
+    if not stem_phaseable(blocks):
+        raise ValueError(
+            'phase_stem requested but the graph stem does not qualify '
+            '(need conv 3x3 s1 pad1 -> conv 3x3 s2 pad1 | maxpool 2x2 s2, '
+            'with no later route/shortcut back to block 0)')
+    c0 = net.conv_0
+    c1 = None if blocks[1]['type'] == 'maxpool' else net.conv_1
+    for m in filter(None, (c0, c1)):
+        if m.bn is not None or m.qconv is not None:
+            raise ValueError('phase_stem_params expects folded, '
+                             'unquantized stem convs')
+    k0, pad0 = P.phase_kernel_s1(P.hwio(c0.weight), pad=1)
+    _set_conv(c0, k0, torch.from_numpy(P.tile_phase_bias(
+        c0.bias.detach().cpu().numpy())).to(c0.bias.device), pad0)
+    if c1 is not None:
+        k1, pad1 = P.phase_kernel_s2(P.hwio(c1.weight), pad=1)
+        _set_conv(c1, k1, c1.bias.detach(), pad1)
+    return net
 
 
 def init(blocks: List[Block], seed: int = 0,

@@ -6,6 +6,11 @@ candidate select -> class-aware greedy NMS (CUDA kernel K1 on the card)
 -> rescale to the original frame, all on the device. Outputs are
 static-shape (max_det, 7) rows per frame with a validity mask, in the
 reference's row format (x1, y1, x2, y2, conf, cls_conf, cls_pred).
+
+With the phase stem (``phase_stem``; on by default where the stem
+qualifies and ``img_size`` is even, as in the JAX package) the letterbox
+emits the (N, S/2, S/2, 12) phase tensor (``letterbox_device_phase``) and
+the stem convs run in their phase-space forms (``ops/phase.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from simple_hrnet_tpu_torch.detectors import darknet
 from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
 from simple_hrnet_tpu_torch.ops import image as I
+from simple_hrnet_tpu_torch.ops import phase as P
 from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
 from simple_hrnet_tpu_torch.utils.device import (host_to_device,
@@ -58,6 +64,46 @@ def letterbox_device(frames: torch.Tensor, img_size: int) -> torch.Tensor:
                      127.5, dtype=torch.float32, device=frames.device)
     out[:, top:top + nh, left:left + nw] = x
     return out / 255.0
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_letterbox_on(img_size: int, in_h: int, in_w: int,
+                        device: torch.device
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``letterbox_device_phase``'s blocked (S, in) row and column
+    matrices, zero outside the resized rectangle, and its (S, S, 1) grey
+    field in the same blocked layout (127.5 outside the rectangle, 0
+    inside), on ``device``, built once per geometry."""
+    _, dw, dh, (nw, nh) = letterbox_params((in_h, in_w), img_size)
+    top = int(round(dh - 0.1))
+    left = int(round(dw - 0.1))
+    wy = np.zeros((img_size, in_h), np.float32)
+    wy[top:top + nh] = I._linear_weights(in_h, nh)
+    wx = np.zeros((img_size, in_w), np.float32)
+    wx[left:left + nw] = I._linear_weights(in_w, nw)
+    grey = np.full((img_size, img_size, 1), 127.5, np.float32)
+    grey[top:top + nh, left:left + nw] = 0.0
+    grey = np.concatenate([grey[0::2], grey[1::2]], axis=0)
+    grey = np.concatenate([grey[:, 0::2], grey[:, 1::2]], axis=1)
+    return tuple(host_to_device(a, device) for a in (
+        P.blocked_rows(wy), P.blocked_rows(wx), grey))
+
+
+def letterbox_device_phase(frames: torch.Tensor, img_size: int
+                           ) -> torch.Tensor:
+    """``letterbox_device`` emitting the (N, S/2, S/2, 12) phase tensor
+    (``ops/phase.py``) instead of (N, S, S, 3), as the JAX package's
+    ``letterbox_device_phase``: the same two-tap dot products, from
+    resize matrices whose rows are blocked [even; odd] and zero outside
+    the resized rectangle, plus a constant grey field, so that odd pad
+    offsets need no special case; the phase tensor is then four
+    contiguous quadrants. In true f32."""
+    wyb, wxb, grey = _phase_letterbox_on(img_size, frames.shape[1],
+                                         frames.shape[2], frames.device)
+    with true_f32():
+        t = torch.einsum('qh,bhwc->bqwc', wyb, frames.float())
+        u = torch.einsum('pw,bqwc->bqpc', wxb, t)
+    return P.phase_quadrants(u + grey) / 255.0
 
 
 def scale_coords_params(img_size: int, shape_hw: Tuple[int, int]
@@ -115,6 +161,20 @@ def kept_rows(boxes: torch.Tensor, top_scores: torch.Tensor,
     return rows
 
 
+def resolve_phase_stem(phase_stem: Optional[bool], phaseable: bool,
+                       img_size: int) -> bool:
+    """The JAX package's rule for a detector's ``phase_stem``: None means
+    on where the stem is ``phaseable`` and ``img_size`` even; True at an
+    odd size raises (a stem that does not qualify raises in its
+    ``phase_stem_params``)."""
+    if phase_stem is None:
+        return phaseable and img_size % 2 == 0
+    if phase_stem and img_size % 2:
+        raise ValueError('phase_stem needs an even img_size '
+                         f'(got {img_size})')
+    return bool(phase_stem)
+
+
 class PersonDetector(abc.ABC):
     """The reference adapter's API over a subclass's ``_detect`` (one
     chunk of (N, H, W, 3) RGB frames on ``self.device`` -> padded rows and
@@ -122,6 +182,15 @@ class PersonDetector(abc.ABC):
 
     device: torch.device
     max_batch_size: int
+    img_size: int
+    phase_stem: bool
+
+    def _letterbox(self, frames: torch.Tensor) -> torch.Tensor:
+        """The network's input: the phase tensor under the phase stem,
+        the (N, S, S, 3) letterbox otherwise."""
+        if self.phase_stem:
+            return letterbox_device_phase(frames, self.img_size)
+        return letterbox_device(frames, self.img_size)
 
     @abc.abstractmethod
     def _detect(self, frames: torch.Tensor
@@ -174,9 +243,13 @@ class YOLOv3(PersonDetector):
     order is built in, as in the JAX package); ``weights_path``: a darknet
     ``.weights`` binary, a ``.pth``/``.pt`` ``Darknet`` state_dict, a JAX
     ``.npz`` darknet tree, or None for random weights (seed 0, for tests
-    and smoke runs). ``device``:
-    'cuda' (default; raises without a card) or 'cpu'. ``dtype``: None
-    (f32) or 'bfloat16' for the darknet convs.
+    and smoke runs); the files hold the untransformed weights.
+    ``device``: 'cuda' (default; raises without a card) or 'cpu'.
+    ``dtype``: None (f32), 'bfloat16' for the darknet convs, or 'int8'
+    (``quantize_int8``: the JAX package's rule). ``phase_stem``: None
+    (on when ``darknet.stem_phaseable`` holds and ``img_size`` is even),
+    True (raises on an odd size or a stem that does not qualify) or
+    False (the plain stem).
     """
 
     def __init__(self,
@@ -191,6 +264,7 @@ class YOLOv3(PersonDetector):
                  max_detections: int = 32,
                  device: Union[str, torch.device, None] = None,
                  dtype: Union[str, torch.dtype, None] = None,
+                 phase_stem: Optional[bool] = None,
                  quantize_int8: Optional[bool] = None):
         if quantize_int8 is not None and dtype != 'int8':
             raise ValueError("quantize_int8 only applies with dtype='int8'")
@@ -210,6 +284,10 @@ class YOLOv3(PersonDetector):
             net = darknet.init(self.blocks, seed=0)
         self.device = resolve_device(device)
         net = darknet.fold_weights(net.to(self.device))
+        self.phase_stem = resolve_phase_stem(
+            phase_stem, darknet.stem_phaseable(self.blocks), img_size)
+        if self.phase_stem:
+            darknet.phase_stem_params(net)
         self.quantized = False
         if dtype == 'int8':
             if quantize_int8 is None:
@@ -231,19 +309,17 @@ class YOLOv3(PersonDetector):
             device=self.device)
 
     def _quantize_int8(self, net: darknet.Darknet, img_size: int) -> None:
-        """Calibrate the folded f32 network on a smooth synthetic frame and
-        quantize in place the policy-accepted convs that the JAX package
-        quantizes with its defaults."""
-        cal = torch.from_numpy(Q.smooth_frames((img_size, img_size))).to(
-            self.device)
-        amax = Q.calibrate(net, [cal], forward=lambda v: net(v, img_size),
-                           types=(darknet.DarknetConv,))
-        if img_size % 2 == 0:
-            # the JAX package's phase stem, on by default at an even size,
-            # rewrites these convs out of its quantize policy: they stay in
-            # the compute type there, and so here
-            for name in darknet.phase_stem_convs(self.blocks):
-                amax.pop(name, None)
+        """Calibrate the folded f32 network that ships (the phase graph
+        under the phase stem, on the phase form of the frame) on a smooth
+        synthetic frame and quantize in place the policy-accepted convs:
+        the phase stem's rewritten convs fall outside the policy."""
+        cal = Q.smooth_frames((img_size, img_size))
+        if self.phase_stem:
+            cal = P.space_to_depth_host(cal)
+        amax = Q.calibrate(
+            net, [torch.from_numpy(cal).to(self.device)],
+            forward=lambda v: net(v, img_size, self.phase_stem),
+            types=(darknet.DarknetConv,))
         Q.quantize_folded(net, amax, types=(darknet.DarknetConv,))
 
     # -- device pipeline ----------------------------------------------------
@@ -255,7 +331,7 @@ class YOLOv3(PersonDetector):
         valid (N, max_det) bool."""
         in_hw = (frames.shape[1], frames.shape[2])
         img_size = self.img_size
-        preds = self.net(letterbox_device(frames, img_size), img_size)
+        preds = self.net(self._letterbox(frames), img_size, self.phase_stem)
         obj = preds[..., 4]
         cls_scores = preds[..., 5:]
         cls_conf = cls_scores.amax(dim=-1)

@@ -13,8 +13,11 @@ the card) -> rescale, with static-shape (max_det, 7) rows per frame and a
 validity mask, in the reference's row format (x1, y1, x2, y2, conf,
 cls_conf, cls_pred).
 
-Not ported: the space-to-depth phase stem (a TPU layout device); the
-6x6 stride-2 stem runs as one conv with padding 2.
+The 6x6 stride-2 stem (``model.0``) runs, by default at an even
+``img_size`` as in the JAX package, as its exact phase-space rewrite
+(``ops/phase.py``; ``stem_phaseable``, ``phase_stem_params``): a 3x3
+stride-1 conv over the (N, S/2, S/2, 12) phase tensor that the letterbox
+emits; ``phase_stem=False`` keeps the one 6x6 conv.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simple_hrnet_tpu_torch.detectors.yolov3 import (
-    PersonDetector, _resolve_dtype, kept_rows, letterbox_device,
+    PersonDetector, _resolve_dtype, kept_rows, resolve_phase_stem,
     top_candidates)
 from simple_hrnet_tpu_torch.models import layers as L
 from simple_hrnet_tpu_torch.models import quantize as Q
 from simple_hrnet_tpu_torch.models.convert import load_into
+from simple_hrnet_tpu_torch.ops import phase as P
 from simple_hrnet_tpu_torch.ops.cuda import activation as A
 from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
 from simple_hrnet_tpu_torch.utils.device import host_to_device, resolve_device
@@ -215,7 +219,9 @@ class YOLOv5Net(nn.Module):
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor, img_size: int) -> torch.Tensor:
-        """(N, S, S, 3) in [0, 1] NHWC -> (N, anchors, 5 + classes) f32."""
+        """(N, S, S, 3) in [0, 1] NHWC -> (N, anchors, 5 + classes) f32;
+        after ``phase_stem_params``, x is the (N, S/2, S/2, 12) phase
+        tensor and ``model.0`` the 3x3 stride-1 rewrite of the stem."""
         m = self.model
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = m['1'](m['0'](x))
@@ -236,6 +242,34 @@ class YOLOv5Net(nn.Module):
             _detect_decode(head(feat.float()), li, img_size)
             for li, (head, feat) in enumerate(zip(m['24'].m,
                                                   (out3, out4, out5)))], 1)
+
+
+def stem_phaseable(net: YOLOv5Net) -> bool:
+    """True when ``model.0`` is the 6x6 stride-2 stem over 3 channels (the
+    JAX package's ``yolov5.stem_phaseable``)."""
+    return tuple(net.model['0'].conv.weight.shape[1:]) == (3, 6, 6)
+
+
+@torch.no_grad()
+def phase_stem_params(net: YOLOv5Net) -> YOLOv5Net:
+    """Rewrite, in place, the FOLDED ``model.0`` 6x6 stride-2 pad-2 conv
+    into its exact phase-space form (``ops/phase.py`` ``phase_kernel_s2``):
+    (c, 3, 6, 6) -> (c, 12, 3, 3), stride 1, pad 1 all round, its output
+    already in the standard layout. Run it before int8 calibration; the
+    12-channel kernel falls outside the policy, as the 3-channel one does.
+    Returns ``net``."""
+    if not stem_phaseable(net):
+        raise ValueError('phase_stem needs model.0 to be the 6x6 stride-2 '
+                         'stem over 3 channels')
+    old = net.model['0'].conv
+    kp, ((top, _), (left, _)) = P.phase_kernel_s2(P.hwio(old.weight), pad=2)
+    conv = L.Conv2d(kp.shape[2], kp.shape[3], kp.shape[0],
+                    padding=(top, left), bias=old.bias is not None)
+    conv.weight = nn.Parameter(P.oihw(kp).to(old.weight.device),
+                               requires_grad=False)
+    conv.bias = old.bias
+    net.model['0'].conv = conv
+    return net
 
 
 def init(cfg: dict, seed: int = 0) -> YOLOv5Net:
@@ -318,7 +352,9 @@ class YOLOv5(PersonDetector):
     raises without a card) or 'cpu'. ``dtype``: None (f32), 'bfloat16', or
     'int8': bf16, the JAX package's measured policy for this graph, unless
     ``quantize_int8=True`` calibrates on a smooth synthetic frame and
-    quantizes the policy-accepted convs.
+    quantizes the policy-accepted convs. ``phase_stem``: None (on at an
+    even ``img_size``, as in the JAX package), True (an odd size raises)
+    or False.
     """
 
     def __init__(self, model_def: str = 'yolov5m',
@@ -327,6 +363,7 @@ class YOLOv5(PersonDetector):
                  conf_thres: float = 0.5, nms_thres: float = 0.45,
                  img_size: int = 640, max_detections: int = 32,
                  max_batch_size: int = 16,
+                 phase_stem: Optional[bool] = None,
                  quantize_int8: Optional[bool] = None):
         if quantize_int8 is not None and dtype != 'int8':
             raise ValueError("quantize_int8 only applies with dtype='int8'")
@@ -338,13 +375,18 @@ class YOLOv5(PersonDetector):
             net = init(self.cfg, seed=0)
         self.device = resolve_device(device)
         net = L.fold_batch_norm(net.eval().to(self.device))
+        self.phase_stem = resolve_phase_stem(phase_stem, stem_phaseable(net),
+                                             img_size)
+        if self.phase_stem:
+            phase_stem_params(net)
         self.quantized = False
         if dtype == 'int8':
             if quantize_int8:
-                cal = torch.from_numpy(Q.smooth_frames(
-                    (img_size, img_size))).to(self.device)
-                amax = Q.calibrate(net, [cal],
-                                   forward=lambda v: net(v, img_size))
+                cal = Q.smooth_frames((img_size, img_size))
+                if self.phase_stem:
+                    cal = P.space_to_depth_host(cal)
+                amax = Q.calibrate(net, [torch.from_numpy(cal).to(
+                    self.device)], forward=lambda v: net(v, img_size))
                 Q.quantize_folded(net, amax)
                 self.quantized = True
             dtype = 'bfloat16'
@@ -370,7 +412,7 @@ class YOLOv5(PersonDetector):
         valid (N, max_det) bool."""
         in_hw = (frames.shape[1], frames.shape[2])
         img_size = self.img_size
-        preds = self.net(letterbox_device(frames, img_size), img_size)
+        preds = self.net(self._letterbox(frames), img_size)
         cls_scores = preds[..., 5:]
         cls_conf = cls_scores.amax(dim=-1)
         cls_pred = torch.argmax(cls_scores, dim=-1)

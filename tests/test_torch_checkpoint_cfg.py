@@ -143,7 +143,8 @@ def test_jax_npz_yolov3_tiny_gives_jax_detections(tmp_path):
     path = str(tmp_path / 'tiny.npz')
     jckpt.save(path, JD.init(jax.random.PRNGKey(0), jdet0.blocks))
     jdet = JY.YOLOv3('yolov3-tiny', weights_path=path, phase_stem=False)
-    tdet = TY.YOLOv3('yolov3-tiny', weights_path=path, device='cpu')
+    tdet = TY.YOLOv3('yolov3-tiny', weights_path=path, device='cpu',
+                     phase_stem=False)
     frames = np.random.default_rng(3).uniform(0, 255, (2, 120, 160, 3)) \
         .astype(np.uint8)
     jr, jv = (np.asarray(a) for a in jdet.detect_padded(frames))

@@ -1,9 +1,9 @@
 """The port's YOLOv3 detector against the JAX package's, on the CPU.
 
 YOLOv3-tiny with the JAX package's seeded random weights, carried across
-by ``convert.from_jax_params``. The JAX detector is built with
-``phase_stem=False``: the space-to-depth stem is a TPU layout device the
-port does not have. f32 throughout.
+by ``convert.from_jax_params``. Both detectors are built with
+``phase_stem=False`` (the plain stem); ``tests/test_torch_phase.py``
+holds the phase stem, the default of both. f32 throughout.
 """
 
 import numpy as np
@@ -28,7 +28,8 @@ def tiny(tmp_path_factory):
     tree = JD.init(jax.random.PRNGKey(0), jdet.blocks)
     path = str(tmp_path_factory.mktemp('det') / 'tiny.pth')
     torch.save(TC.from_jax_params(tree), path)
-    tdet = TY.YOLOv3('yolov3-tiny', weights_path=path, device='cpu')
+    tdet = TY.YOLOv3('yolov3-tiny', weights_path=path, device='cpu',
+                     phase_stem=False)
     return jdet, tdet, path
 
 
@@ -122,8 +123,8 @@ def test_int8_tiny_detector_matches_jax_quantized_set(tiny):
     ref = {k: float(v['ascale']) for k, v in jq.params.items()
            if 'kernel_q' in v}
     assert sorted(ref) == ['conv_2', 'conv_4', 'conv_6']
-    det = TY.YOLOv3('yolov3-tiny', weights_path=tiny[2],
-                    device='cpu', dtype='int8', quantize_int8=True)
+    det = TY.YOLOv3('yolov3-tiny', weights_path=tiny[2], device='cpu',
+                    dtype='int8', quantize_int8=True, phase_stem=False)
     got = {n: m.qconv.ascale.item() for n, m in det.net.named_modules()
            if getattr(m, 'qconv', None) is not None}
     assert sorted(got) == sorted(ref)
@@ -132,12 +133,12 @@ def test_int8_tiny_detector_matches_jax_quantized_set(tiny):
 
 
 def test_int8_yolov3_matches_jax_default_quantized_set(tmp_path):
-    """YOLOv3 under dtype='int8' with both packages' defaults: the JAX
-    facade turns its phase stem on at an even size, which rewrites
-    ``conv_1`` (3, 3, 32, 64) out of the quantize policy, so the port
-    leaves ``conv_1`` in bf16 too (it would pass the policy) and
-    quantizes the same set with the same activation scales to 1e-5. The
-    set does not depend on the size: 64 keeps the test short."""
+    """YOLOv3 under dtype='int8' with both packages' defaults: both turn
+    their phase stem on at an even size, which rewrites ``conv_1`` (3, 3,
+    32, 64; the policy would take it) into a (2, 2, 128, 64) conv that
+    the policy leaves in bf16, so both quantize the same set with the
+    same activation scales to 1e-5. The set does not depend on the size:
+    64 keeps the test short."""
     jq = JY.YOLOv3('yolov3', dtype='int8', img_size=64)
     assert jq.phase_stem
     ref = {k: float(v['ascale']) for k, v in jq.params.items()
@@ -149,8 +150,9 @@ def test_int8_yolov3_matches_jax_default_quantized_set(tmp_path):
                     dtype='int8', img_size=64)
     got = {n: m.qconv.ascale.item() for n, m in det.net.named_modules()
            if getattr(m, 'qconv', None) is not None}
-    assert 'conv_1' not in got and TQ.default_policy(
-        TQ.conv_shape(det.net.conv_1))
+    assert det.phase_stem and 'conv_1' not in got
+    assert TQ.conv_shape(det.net.conv_1) == (2, 2, 128, 64)
+    assert not TQ.default_policy(TQ.conv_shape(det.net.conv_1))
     assert sorted(got) == sorted(ref) == ['conv_10', 'conv_3', 'conv_5',
                                           'conv_7']
     for k, a in ref.items():

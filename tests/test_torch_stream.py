@@ -48,6 +48,7 @@ def tiny_facades(pth):
     net = TC.load_into(TD.Darknet(port.detector.blocks),
                        TC.from_jax_params(tree)).eval()
     port.detector.net = TD.fold_weights(net)
+    port.detector.phase_stem = False  # the plain stem, as the JAX one
     return port, ref
 
 

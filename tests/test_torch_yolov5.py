@@ -154,12 +154,13 @@ def test_ultralytics_loader(tmp_path):
 
 @pytest.mark.parametrize('phase_stem', [False, None])
 def test_detect_padded_matches_jax(pt, phase_stem):
-    """Rows and validity against the JAX detector, with its phase stem off
-    and at its default (on: an exact rewrite of the same 6x6 conv); the
-    reference-compatible API on BGR frames."""
+    """Rows and validity against the JAX detector with the same
+    ``phase_stem``: off, and at the default (on: an exact rewrite of the
+    same 6x6 conv over the phase tensor); the reference-compatible API on
+    BGR frames."""
     jdet = JY.YOLOv5(pt, img_size=SIZE, phase_stem=phase_stem)
-    assert jdet.phase_stem == (phase_stem is None)
-    tdet = TY.YOLOv5(pt, img_size=SIZE, device='cpu')
+    tdet = TY.YOLOv5(pt, img_size=SIZE, device='cpu', phase_stem=phase_stem)
+    assert jdet.phase_stem == tdet.phase_stem == (phase_stem is None)
     frames = _frames()
     jr, jv = (np.asarray(a) for a in jdet.detect_padded(frames))
     tr, tv = (a.numpy() for a in tdet.detect_padded(frames))
@@ -196,7 +197,7 @@ def test_quantize_int8_matches_jax(pt):
     jdet = JY.YOLOv5(pt, img_size=SIZE, dtype='int8', quantize_int8=True,
                      phase_stem=False)
     tdet = TY.YOLOv5(pt, img_size=SIZE, device='cpu', dtype='int8',
-                     quantize_int8=True)
+                     quantize_int8=True, phase_stem=False)
     assert tdet.quantized and tdet.dtype == torch.bfloat16
     q = [n for n, m in tdet.net.named_modules() if isinstance(m, QConv2d)]
     jq = sorted(p for i, p in JQ.node_paths(jdet.params).items()
@@ -254,6 +255,26 @@ def test_quantize_int8_matches_jax(pt):
         TY.YOLOv5(pt, device='cpu', quantize_int8=True)
 
 
+def test_quantize_int8_phase_stem_matches_jax(pt):
+    """``quantize_int8=True`` with both packages' default phase stem: each
+    calibrates the graph that ships on the phase form of the frame, and
+    quantizes the same convs (not ``model.0``, now 3x3 over 12 channels,
+    outside the policy) with the same activation scales to 1e-5."""
+    jdet = JY.YOLOv5(pt, img_size=SIZE, dtype='int8', quantize_int8=True)
+    tdet = TY.YOLOv5(pt, img_size=SIZE, device='cpu', dtype='int8',
+                     quantize_int8=True)
+    assert jdet.phase_stem and tdet.phase_stem and tdet.quantized
+    assert tuple(tdet.net.model['0'].conv.weight.shape) == (16, 12, 3, 3)
+    ref = {p: float(_node(jdet.params, p)['ascale'])
+           for p in JQ.node_paths(jdet.params).values()
+           if 'kernel_q' in _node(jdet.params, p)}
+    got = {n: m.ascale.item() for n, m in tdet.net.named_modules()
+           if isinstance(m, QConv2d)}
+    assert ref and sorted(got) == sorted(ref)
+    for k, a in ref.items():
+        assert abs(got[k] - a) <= 1e-5 * a, k
+
+
 def _node(tree, path):
     for part in path.split('.'):
         tree = tree[part]
@@ -274,7 +295,7 @@ def facades(pt, tmp_path_factory):
     assert isinstance(port.detector, TY.YOLOv5)
     assert port.detector.cfg['variant'] == 'yolov5m'  # 'yolov3' -> yolov5m
     port.detector = TY.YOLOv5(pt, img_size=SIZE, device='cpu',
-                              max_batch_size=32)
+                              phase_stem=False, max_batch_size=32)
     ref.detector = JY.YOLOv5(pt, img_size=SIZE, phase_stem=False,
                              max_batch_size=32)
     return port, ref

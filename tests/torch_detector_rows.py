@@ -2,10 +2,11 @@
 frame, below the detector's own threshold too, so that a candidate near
 the threshold shows with its score.
 
-The port's rows on the CPU (or ``--device cuda``); with ``--jax`` also the
-JAX package's (its default stem and the plain stem the port runs, where
-the detector has a phase stem), on the CPU. Without ``--jax`` nothing of
-JAX is imported. Run from the repository root:
+The port's rows on the CPU (or ``--device cuda``), with its default stem
+and, where that is the phase stem, with the plain stem too; with
+``--jax`` also the JAX package's, both stem forms alike, on the CPU.
+Without ``--jax`` nothing of JAX is imported. Run from the repository
+root:
 
     python tests/torch_detector_rows.py video_yolov5m_w48 bfloat16 \\
         --conf 0.3 [--device cuda] [--jax]
@@ -51,9 +52,14 @@ def main(argv=None) -> int:
             tmp, G.config_weights(args.config)).items()}
         model = G.port_facade(args.config, paths, args.dtype,
                               device=args.device)
-        model.detector.conf_thres = args.conf
-        _print(f'port ({args.device})',
-               G.detector_rows(model.detector, frames))
+        stems = [('default stem', model.detector)]
+        if model.detector.phase_stem:
+            stems.append(('plain stem', G.plain_stem_detector(
+                args.config, paths, args.dtype, args.device)))
+        for label, det in stems:
+            det.conf_thres = args.conf
+            _print(f'port ({args.device}, {label})',
+                   G.detector_rows(det, frames))
         if args.jax:
             import jax
             jax.config.update('jax_platforms', 'cpu')

@@ -490,19 +490,35 @@ def zero_chain(hrnet: torch.nn.Module, stage: str = 'stage3'):
         lambda _m, _args, out: torch.zeros_like(out))
 
 
-@contextlib.contextmanager
-def plain_stem_int8():
-    """Inside, a port YOLOv3 built with ``dtype='int8'`` also quantizes
-    the convs that the JAX package's phase stem keeps out of its int8
-    policy (``darknet.phase_stem_convs`` names none): YOLOv3-416's
-    ``conv_1``, the port's set before ROADMAP C11's repair. A control."""
-    from simple_hrnet_tpu_torch.detectors import darknet
-    real = darknet.phase_stem_convs
-    darknet.phase_stem_convs = lambda blocks: []
-    try:
-        yield
-    finally:
-        darknet.phase_stem_convs = real
+def plain_stem_detector(config: str, paths: dict, dtype: str = 'f32',
+                        device: str = 'cpu'):
+    """The port's detector of ``config`` as its facade builds it in
+    ``dtype``, but with ``phase_stem=False``: the plain stem, which the JAX
+    package's golden does not run."""
+    from simple_hrnet_tpu_torch.detectors.yolov3 import YOLOv3
+    from simple_hrnet_tpu_torch.detectors.yolov5 import YOLOv5
+    kw = facade_kwargs(config, paths, dtype)
+    common = dict(max_batch_size=kw.get('max_batch_size', 32),
+                  device=device, dtype=None if dtype == 'f32' else dtype,
+                  phase_stem=False)
+    if kw.get('yolo_version') == 'v5':
+        return YOLOv5(model_def=kw['yolo_model_def'], **common)
+    return YOLOv3(model_def=kw['yolo_model_def'],
+                  weights_path=kw['yolo_weights_path'], **common)
+
+
+def plain_stem_int8(model, config: str, paths: dict) -> None:
+    """A control: the int8 facade ``model`` of ``config`` with its YOLOv3
+    rebuilt with ``phase_stem=False``, whose int8 policy also takes
+    ``conv_1`` (3, 3, 32, 64), which the JAX package's default phase stem
+    rewrites out of it (ROADMAP C11). Call it before the facade's first
+    call (its runners keep the detector they were built with)."""
+    model.detector = plain_stem_detector(config, paths, 'int8',
+                                         model.detector.device)
+    if not model.detector.quantized or \
+            model.detector.net.conv_1.qconv is None:
+        raise AssertionError('the plain-stem control did not quantize '
+                             'conv_1')
 
 
 def detector_rows(detector, frames: np.ndarray) -> list:
