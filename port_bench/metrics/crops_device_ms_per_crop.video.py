@@ -1,0 +1,9 @@
+"""Device ms of the events launched inside the program's
+``sht.crops[k]`` spans (box padding and the crop resampler), over the
+crop slots they hold."""
+
+from port_bench.harness import program_spans
+
+
+def read(run):
+    return program_spans.device_ms_per_count(run, 'crops')

@@ -79,6 +79,7 @@ from simple_hrnet_tpu_torch.parallel.mesh import (module_to, move_attrs,
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
 from simple_hrnet_tpu_torch.utils.device import (host_to_device,
                                                  resolve_device, true_f32)
+from simple_hrnet_tpu_torch.utils.profiling import span
 
 
 HRNET_NAMES = ('HRNet', 'hrnet')
@@ -100,21 +101,21 @@ def _buckets(n: int, max_batch: int, multiple: int = 1) -> int:
 
 def _chunks(frames, batch_frames: int):
     """``frames`` as launches of ``batch_frames`` frames of one shape:
-    yields (stacked frames, count of real frames). A change of frame shape
-    flushes the chunk, and a short chunk is padded with its last frame."""
+    yields (the launch's frames, count of real frames). A change of frame
+    shape flushes the chunk, and a short chunk is padded with its last
+    frame."""
     buf = []
     for frame in frames:
         f = np.ascontiguousarray(frame)
         if buf and f.shape != buf[0].shape:
-            yield np.stack(buf + [buf[-1]] * (batch_frames - len(buf))), \
-                len(buf)
+            yield buf + [buf[-1]] * (batch_frames - len(buf)), len(buf)
             buf = []
         buf.append(f)
         if len(buf) >= batch_frames:
-            yield np.stack(buf), len(buf)
+            yield buf, len(buf)
             buf = []
     if buf:
-        yield np.stack(buf + [buf[-1]] * (batch_frames - len(buf))), len(buf)
+        yield buf + [buf[-1]] * (batch_frames - len(buf)), len(buf)
 
 
 def _slot_ladder(cap: int):
@@ -181,10 +182,15 @@ def _pose_tail(model, crops: torch.Tensor, padded_boxes: torch.Tensor
     """Crops (or whole frames) rounded and clipped to uint8 values ->
     ImageNet normalize -> pose model -> argmax decode into the boxes' frame
     coordinates (SimpleHRNet.py:279-296), in true f32. The round is the
-    identity on frames that were not resized."""
+    identity on frames that were not resized. The model call runs in a
+    ``sht.pose[k]`` span and the decode in ``sht.decode[k]``, ``k`` the
+    crop slots."""
+    k = crops.shape[0]
     x = I.normalize(torch.clamp(torch.round(crops), 0.0, 255.0))
-    hm = model(x)
-    return hm, D.argmax_decode(hm, padded_boxes)
+    with span('pose', k):
+        hm = model(x)
+    with span('decode', k):
+        return hm, D.argmax_decode(hm, padded_boxes)
 
 
 class SimpleHRNet:
@@ -494,9 +500,10 @@ class SimpleHRNet:
         models = self._models
 
         def tail(i, frames, bxs):
-            x = frames.float()
-            if resize is not None:
-                x = resize(x, res_hw)
+            with span('crops', frames.shape[0]):
+                x = frames.float()
+                if resize is not None:
+                    x = resize(x, res_hw)
             return _pose_tail(models[i], x, bxs)
 
         @torch.no_grad()
@@ -516,18 +523,23 @@ class SimpleHRNet:
         poses and decodes ``bucket`` of them from ``start``; it returns the
         total count, the per-frame counts, heatmaps, padded boxes and
         keypoints. Slots past the total are computed and dropped by the
-        caller."""
+        caller. Under a mesh each device pads and crops its own part of
+        the boxes (``sht.crops`` of that part's slots)."""
         key = ('gather', bucket, clamp_hw)
         if key in self._gather_runs:
             return self._gather_runs[key]
         res_h, res_w = self.resolution
         models = self._models
 
-        def tail(i, fi, padded, boxes, frames_rgb):
-            crops = I.crop_resize_pil(
-                frames_rgb, fi, padded, (res_h, res_w),
-                valid_boxes=None if clamp_hw is not None else boxes)
-            return _pose_tail(models[i], crops, padded)
+        def tail(i, fi, boxes, frames_rgb):
+            with span('crops', fi.shape[0]):
+                padded = I.pad_to_aspect(boxes, res_h / res_w,
+                                         clamp_hw=clamp_hw)
+                crops = I.crop_resize_pil(
+                    frames_rgb, fi, padded, (res_h, res_w),
+                    valid_boxes=None if clamp_hw is not None else boxes)
+            hm, pts = _pose_tail(models[i], crops, padded)
+            return hm, padded, pts
 
         @torch.no_grad()
         def run(frames_rgb: torch.Tensor, rows: torch.Tensor,
@@ -541,12 +553,11 @@ class SimpleHRNet:
             sel = order[start:start + bucket]
             fi = sel // d
             boxes = torch.round(rows.reshape(-1, rows.shape[-1])[sel][:, :4])
-            padded = I.pad_to_aspect(boxes, res_h / res_w, clamp_hw=clamp_hw)
             if self._sharded(bucket):
-                hm, pts = self._on_mesh(tail, (fi, padded, boxes),
-                                        (frames_rgb,))
+                hm, padded, pts = self._on_mesh(tail, (fi, boxes),
+                                                (frames_rgb,))
             else:
-                hm, pts = tail(0, fi, padded, boxes, frames_rgb)
+                hm, padded, pts = tail(0, fi, boxes, frames_rgb)
             return total, counts, hm, padded, pts
 
         self._gather_runs[key] = run
@@ -605,12 +616,13 @@ class SimpleHRNet:
             rows, valid = detectors[i].detect_padded(frames_rgb)
             rows = rows[:, :max_people]
             valid = valid[:, :max_people]
-            boxes = torch.round(rows[..., :4]).reshape(-1, 4)
-            padded = I.pad_to_aspect(boxes, res_h / res_w)
-            fi = torch.arange(nf * max_people,
-                              device=frames_rgb.device) // max_people
-            crops = I.crop_resize_pil(frames_rgb, fi, padded, (res_h, res_w),
-                                      valid_boxes=boxes)
+            with span('crops', nf * max_people):
+                boxes = torch.round(rows[..., :4]).reshape(-1, 4)
+                padded = I.pad_to_aspect(boxes, res_h / res_w)
+                fi = torch.arange(nf * max_people,
+                                  device=frames_rgb.device) // max_people
+                crops = I.crop_resize_pil(frames_rgb, fi, padded,
+                                          (res_h, res_w), valid_boxes=boxes)
             hm, pts = _pose_tail(models[i], crops, padded)
             return (valid, padded.reshape(*shp, 4),
                     hm.reshape(*shp, *hm.shape[1:]),
@@ -689,7 +701,8 @@ class SimpleHRNet:
                            self._mult)
         first = self._gather_crop(bucket0, clamp_hw)(frames_rgb, rows, valid,
                                                      0)
-        total = int(first[0])  # first host sync: the first pose batch is done
+        with span('read'):  # first host sync: the first pose batch is done
+            total = int(first[0])
         return (first[1].cpu().numpy(),) + self._gathered(
             frames_rgb, rows, valid, clamp_hw, total, (bucket0, first))
 
@@ -726,13 +739,15 @@ class SimpleHRNet:
     def _host(self, valid, boxes, hm, pts):
         """Device outputs on the host, one copy each (a list of tensors is
         concatenated first; ``valid`` may be None); heatmaps only when
-        ``return_heatmaps`` asks for them (else None)."""
+        ``return_heatmaps`` asks for them (else None). In a ``sht.read``
+        span: the host waits here for the device."""
         def get(t):
             if t is None:
                 return None
             return (torch.cat(t) if isinstance(t, list) else t).cpu().numpy()
-        return (get(valid), get(boxes),
-                get(hm) if self.return_heatmaps else None, get(pts))
+        with span('read'):
+            return (get(valid), get(boxes),
+                    get(hm) if self.return_heatmaps else None, get(pts))
 
     def _finish_empty(self):
         """The per-frame result of a frame with zero people — what
@@ -757,11 +772,14 @@ class SimpleHRNet:
 
     def _finish_rows(self, host, n_real: int):
         """The first ``n_real`` frames of a chunk's host outputs (see
-        ``_host``), each as ``_finish_fused`` gives it."""
+        ``_host``), each as ``_finish_fused`` gives it (a ``sht.finish``
+        span)."""
         valid, boxes, hm, pts = host
-        return [self._finish_fused((valid[i], boxes[i],
-                                    None if hm is None else hm[i], pts[i]))
-                for i in range(n_real)]
+        with span('finish'):
+            return [self._finish_fused((valid[i], boxes[i],
+                                        None if hm is None else hm[i],
+                                        pts[i]))
+                    for i in range(n_real)]
 
     def _finish_slice(self, hm, boxes, pts):
         """Per-frame result from compacted-order slices (the cross-frame
@@ -789,17 +807,31 @@ class SimpleHRNet:
     def _pipeline(self, frames, batch_frames: int, prefetch: int,
                   dispatch: Callable, resolve: Callable):
         """The dispatch-ahead loop of every stream mode. Each chunk of
-        ``_chunks(frames, batch_frames)`` is uploaded and handed to
-        ``dispatch(frames_rgb, n_real)``, which launches it and returns an
-        entry; at most ``prefetch`` entries wait, and ``resolve(entry)``
-        returns the launch's per-frame results, yielded in order."""
+        ``_chunks(frames, batch_frames)`` is stacked, uploaded and handed
+        to ``dispatch(frames_rgb, n_real)``, which launches it and returns
+        an entry; at most ``prefetch`` entries wait, and ``resolve(entry)``
+        returns the launch's per-frame results, yielded in order. Chunk
+        ``c`` (from 0) runs these four steps in ``sht.stack[c]``,
+        ``sht.upload[c]``, ``sht.dispatch[c]`` and ``sht.resolve[c]``
+        spans; pulling frames from ``frames`` and the caller's time
+        between yields lie outside them."""
         pending = collections.deque()
-        for stack, n_real in _chunks(frames, batch_frames):
-            pending.append(dispatch(self._upload(stack), n_real))
+
+        def resolved(c, entry):
+            with span('resolve', c):
+                return resolve(entry)
+
+        for c, (chunk, n_real) in enumerate(_chunks(frames, batch_frames)):
+            with span('stack', c):
+                stack = np.stack(chunk)
+            with span('upload', c):
+                frames_rgb = self._upload(stack)
+            with span('dispatch', c):
+                pending.append((c, dispatch(frames_rgb, n_real)))
             while len(pending) > prefetch:
-                yield from resolve(pending.popleft())
+                yield from resolved(*pending.popleft())
         while pending:
-            yield from resolve(pending.popleft())
+            yield from resolved(*pending.popleft())
 
     def predict_stream(self, frames, max_people: int = 16,
                        prefetch: int = 2, batch_frames: int = 1,
@@ -890,7 +922,8 @@ class SimpleHRNet:
         def resolve(entry):
             out, in_hw = entry
             _, _, hm, pts = self._host(None, None, *out)
-            return [self._finish_single(hm, pts, in_hw)]
+            with span('finish'):
+                return [self._finish_single(hm, pts, in_hw)]
 
         yield from self._pipeline(frames, 1, prefetch, dispatch, resolve)
 
@@ -929,7 +962,8 @@ class SimpleHRNet:
                 # fits the TRUE count (the counts runner sees every detector
                 # row, not a slot truncation), so one re-run lands where the
                 # saturation cascade would
-                m = int(out.max())
+                with span('read'):
+                    m = int(out.max())
                 if m == 0:
                     ctl.observe(0)
                     return [self._finish_empty() for _ in range(n_real)]
@@ -979,7 +1013,8 @@ class SimpleHRNet:
 
         def resolve(entry):
             frames_rgb, rows, valid, counts_d, first, n_real = entry
-            counts = counts_d.cpu().numpy()[:n_real]  # the window's host read
+            with span('read'):  # the window's host read
+                counts = counts_d.cpu().numpy()[:n_real]
             needed = int(counts.sum())
             prior[0] = needed
             if first is None and needed == 0:
@@ -987,9 +1022,10 @@ class SimpleHRNet:
             hm, boxes, pts = self._gathered(frames_rgb, rows, valid, None,
                                             needed, first)
             ends = np.cumsum(counts)
-            return [self._finish_slice(None if hm is None else hm[e - n:e],
-                                       boxes[e - n:e], pts[e - n:e])
-                    for n, e in zip(counts, ends)]
+            with span('finish'):
+                return [self._finish_slice(
+                    None if hm is None else hm[e - n:e], boxes[e - n:e],
+                    pts[e - n:e]) for n, e in zip(counts, ends)]
 
         yield from self._pipeline(frames, batch_frames, prefetch, dispatch,
                                   resolve)

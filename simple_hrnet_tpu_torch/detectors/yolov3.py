@@ -32,6 +32,7 @@ from simple_hrnet_tpu_torch.ops.nms import nms_ingraph
 from simple_hrnet_tpu_torch.utils import checkpoint as ckpt
 from simple_hrnet_tpu_torch.utils.device import (host_to_device,
                                                  resolve_device, true_f32)
+from simple_hrnet_tpu_torch.utils.profiling import span
 
 # COCO class names index 0 == person (the default filter)
 PERSON_CLASS_ID = 0
@@ -203,14 +204,16 @@ class PersonDetector(abc.ABC):
         validity on the device, in chunks of ``max_batch_size`` frames. The
         detector's one device entry (``predict`` and ``predict_single``
         reach it too): its f32 letterbox and convs run in true f32, and
-        the caller's TF32 flags are left as found."""
-        frames = torch.as_tensor(frames_rgb, device=self.device)
-        parts = [self._detect(frames[s:s + self.max_batch_size])
-                 for s in range(0, frames.shape[0], self.max_batch_size)]
-        if len(parts) == 1:
-            return parts[0]
-        return (torch.cat([r for r, _ in parts]),
-                torch.cat([v for _, v in parts]))
+        the caller's TF32 flags are left as found. In a ``sht.detect[N]``
+        span."""
+        with span('detect', len(frames_rgb)):
+            frames = torch.as_tensor(frames_rgb, device=self.device)
+            parts = [self._detect(frames[s:s + self.max_batch_size])
+                     for s in range(0, frames.shape[0], self.max_batch_size)]
+            if len(parts) == 1:
+                return parts[0]
+            return (torch.cat([r for r, _ in parts]),
+                    torch.cat([v for _, v in parts]))
 
     def predict_single(self, image: np.ndarray, color_mode: str = 'BGR'):
         """Single frame -> (n_det, 7) array or None (reference YOLOv3.py)."""

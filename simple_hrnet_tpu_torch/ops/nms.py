@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from simple_hrnet_tpu_torch.ops.cuda.nms import nms, nms_plain
+from simple_hrnet_tpu_torch.utils.profiling import span
 from simple_hrnet_tpu_torch.utils.tracking import COCO_SIGMAS
 
 __all__ = ['nms_ingraph', 'nms_plain', 'nms_numpy', 'oks_iou', 'oks_nms',
@@ -34,11 +35,14 @@ def nms_ingraph(boxes: torch.Tensor, scores: torch.Tensor,
                 iou_threshold: float, max_out: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """boxes (N, 4) / (B, N, 4) f32 xyxy, scores (N,) / (B, N) -> keep_idx
-    int32 and keep_valid bool of shape (max_out,) / (B, max_out)."""
-    if boxes.ndim == 2:
-        idx, valid = nms(boxes[None], scores[None], iou_threshold, max_out)
-        return idx[0], valid[0]
-    return nms(boxes, scores, iou_threshold, max_out)
+    int32 and keep_valid bool of shape (max_out,) / (B, max_out). In a
+    ``sht.nms[B]`` span."""
+    with span('nms', boxes.shape[0] if boxes.ndim == 3 else 1):
+        if boxes.ndim == 2:
+            idx, valid = nms(boxes[None], scores[None], iou_threshold,
+                             max_out)
+            return idx[0], valid[0]
+        return nms(boxes, scores, iou_threshold, max_out)
 
 
 def _native_nms():

@@ -16,7 +16,8 @@ cv2-written 8-frame video with ``resolution`` (height, width),
 ``rotation_code`` and a stub detector gives JAX's frames and detections
 frame for frame. ``chip_smoke.check_native_decode`` (the card script's
 check of the fused decode against the plain decode warped in numpy, in
-f64) holds within its 1e-4. ``StageTimer`` and ``trace`` run.
+f64) holds within its 1e-4. ``span`` is the shared null context with no
+profiler recording and a ``sht.`` range under one, and ``trace`` runs.
 """
 
 import ctypes
@@ -183,16 +184,16 @@ def test_chip_smoke_native_decode_check():
 
 
 def test_profiling_utilities(tmp_path):
-    timer = profiling.StageTimer(alpha=0.5)
-    for _ in range(3):
-        with timer.stage('detector'):
-            sum(range(1000))
-    assert set(timer.means) == {'detector'} and timer.means['detector'] > 0
-    assert timer.summary().startswith('detector: ')
     import torch
+    idle = profiling.span('detect', 8)
+    assert idle is profiling.span('pose') and idle.__enter__() is None
     with profiling.trace(str(tmp_path / 'tr')) as prof:
-        torch.ones(4).add_(1)
+        with profiling.span('detect', 8):
+            with profiling.span('read'):
+                torch.ones(4).add_(1)
     assert prof is not None
+    names = [e.name for e in prof.events()]
+    assert 'sht.detect[8]' in names and 'sht.read' in names
     assert os.path.exists(tmp_path / 'tr' / 'trace.json')
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
